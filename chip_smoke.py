@@ -41,6 +41,12 @@ from repro_torch.train.step import decode_step, prefill_step  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# clock cycles of the spin kernel per second of host time to cover (above
+# the H100's 1.98 GHz boost clock, so the spin lasts at least that long)
+SPIN_CYCLES_PER_S = 2e9
+L2_FLUSH_BYTES = 128 * 2 ** 20  # over twice the H100's 50 MB L2
+# the device kernels of csrc/flash_attention.cu and csrc/decode_attention.cu
+ATTENTION_KERNEL_NAMES = ("flash_fwd", "decode_split_kernel", "decode_combine_kernel")
 
 # kernel cases: those of tests/test_kernels.py plus softcap / q_offset cases
 # (b, sq, skv, h, kvh, d, causal, window, softcap, q_offset)
@@ -54,7 +60,11 @@ FLASH_CASES = [
     (1, 128, 128, 4, 2, 64, True, 0, 30.0, 0),
     (2, 64, 192, 4, 2, 64, True, 0, 0.0, 128),
     (1, 96, 320, 4, 1, 32, True, 64, 25.0, 224),
+    (1, 100, 100, 4, 2, 64, True, 0, 0.0, 0),
+    (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),
 ]
+# llama3.2-1b attention at batch 8 beyond the serving prefill: (sq, skv, causal)
+FLASH_SWEEP = [(256, 64, False), (256, 128, False), (256, 256, False), (1024, 1024, True)]
 # (b, s, h, kvh, d, softcap)
 DECODE_CASES = [
     (2, 512, 8, 2, 64, 0.0),
@@ -62,6 +72,13 @@ DECODE_CASES = [
     (3, 1024, 4, 4, 128, 0.0),
     (2, 257, 14, 2, 64, 0.0),
     (2, 512, 8, 2, 64, 25.0),
+]
+# decode with explicit lengths: 0, S, on a split boundary, one past a split
+# (b, s, h, kvh, d, softcap, lengths)
+DECODE_LENGTH_CASES = [
+    (5, 300, 8, 2, 64, 0.0, (0, 300, 128, 65, 129)),
+    (4, 256, 4, 1, 128, 25.0, (0, 256, 64, 129)),
+    (3, 192, 14, 2, 32, 0.0, (192, 0, 65)),
 ]
 # fp32: summation order only; bf16: one rounding of O(1) outputs (2^-8) plus order
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -85,19 +102,38 @@ def phase(tag: str, /, **fields) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean time of one call on the card, by CUDA events around ``iters`` calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, flush: torch.Tensor | None = None) -> float:
+    """Mean device time of one call, by CUDA events.
+
+    The calls are queued behind a spin kernel that lasts longer than the host
+    takes to queue them, so the host's launch time is not counted. Warm: one
+    pair of events around ``iters`` calls back to back. With ``flush``, a
+    buffer larger than the L2 cache is overwritten before each call, outside
+    that call's own pair of events.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(1 if flush is None else iters)]
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (2 * iters * host_s + 1e-3)))
+    if flush is None:
+        pairs[0][0].record()
+        for _ in range(iters):
+            fn()
+        pairs[0][1].record()
+    else:
+        for start, end in pairs:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
 def bound(nbytes: int, flops: int):
@@ -133,6 +169,20 @@ def first_logits(params, cfg, batch, token, impl):
     return {"prefill": logits.float(), "decode": dlogits.float()}
 
 
+def library_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs, by torch.profiler (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return "; ".join(e.key[:120] for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0) or "not measured"
+
+
 def profile_steps(srv, batch, token):
     """Host time, device-busy time and the top kernels of one prefill and one
     decode step, from torch.profiler (CUPTI)."""
@@ -157,10 +207,15 @@ def profile_steps(srv, batch, token):
                    and e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        # the port's own attention kernels (csrc/*.cu), by name
+        ours = [e for e in kernels if any(n in e.key for n in ATTENTION_KERNEL_NAMES)]
         out[step] = dict(
             wall_ms=f"{wall_ms:.3f}",
             device_busy_ms=f"{busy_ms:.3f}" if kernels else "not measured",
             idle_share=f"{1 - busy_ms / wall_ms:.3f}" if kernels else "not measured",
+            attention_kernels="; ".join(
+                f"{e.key.split('<')[0].split()[-1].split('::')[-1]} x{e.count} "
+                f"{e.self_device_time_total / 1e3:.4f}ms" for e in ours) or "none",
             kernels=sum(e.count for e in kernels),
             top="; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
                           for e in top),
@@ -193,7 +248,7 @@ def main() -> int:
           **{s: f"{v:.1f}s" for s, v in seconds.items()})
     for s in sources:
         for line in _build.library_path(s).with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {s}: {line.strip()}")
 
     # -- 3. kernels against their plain versions --------------------------
@@ -203,33 +258,50 @@ def main() -> int:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
+    def check(what, out, want, dtype):
+        err = max_err(out, want)
+        torch.cuda.synchronize()
+        if not err < TOL[dtype]:
+            fail(f"{what} {dtype}: max err {err} >= {TOL[dtype]}")
+
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_CASES:
             b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
             q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, skv, kvh, d, dtype=dtype), \
                 randn(b, skv, kvh, d, dtype=dtype)
             kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
-            err = max_err(flash_mod.flash_attention(q, k, v, **kw), ref.attention_ref(q, k, v, **kw))
-            torch.cuda.synchronize()
-            if not err < TOL[dtype]:
-                fail(f"flash_attention {case} {dtype}: max err {err} >= {TOL[dtype]}")
+            want = ref.attention_ref(q, k, v, **kw)
+            check(f"flash_attention {case}", flash_mod.flash_attention(q, k, v, **kw), want, dtype)
         for case in DECODE_CASES:
             b, s, h, kvh, d, softcap = case
             q, k, v = randn(b, h, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype), \
                 randn(b, s, kvh, d, dtype=dtype)
             lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
-            err = max_err(dec_mod.decode_attention(q, k, v, lens, softcap=softcap),
-                          ref.decode_attention_ref(q, k, v, lens, softcap=softcap))
-            torch.cuda.synchronize()
-            if not err < TOL[dtype]:
-                fail(f"decode_attention {case} {dtype}: max err {err} >= {TOL[dtype]}")
+            want = ref.decode_attention_ref(q, k, v, lens, softcap=softcap)
+            check(f"decode_attention {case}",
+                  dec_mod.decode_attention(q, k, v, lens, softcap=softcap), want, dtype)
+        for case in DECODE_LENGTH_CASES:
+            b, s, h, kvh, d, softcap, lengths = case
+            q, k, v = randn(b, h, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype), \
+                randn(b, s, kvh, d, dtype=dtype)
+            lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+            # length 0 gives zeros, as the Pallas kernel and the split algorithm
+            # do; decode_attention_ref averages V there, so it holds the rest
+            rows = lens > 0
+            out = dec_mod.decode_attention(q, k, v, lens, softcap=softcap)
+            check(f"decode_attention {case}", out, ref.decode_attention_split_ref(
+                q, k, v, lens, split=dec_mod.SPLIT, softcap=softcap), dtype)
+            check(f"decode_attention {case} rows of length > 0", out[rows],
+                  ref.decode_attention_ref(q, k, v, lens, softcap=softcap)[rows], dtype)
     phase("kernels-cases", flash=len(FLASH_CASES) * 2, decode=len(DECODE_CASES) * 2,
-          tol_fp32=TOL[torch.float32], tol_bf16=TOL[torch.bfloat16], result="within")
+          decode_lengths=len(DECODE_LENGTH_CASES) * 2, tol_fp32=TOL[torch.float32],
+          tol_bf16=TOL[torch.bfloat16], result="within")
 
     cfg = get_config(ARCH)
     h, kvh, d, bf16 = cfg.num_heads, cfg.num_kv_heads, cfg.hd(), torch.bfloat16
     F = torch.nn.functional
     records = {}
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
     # prefill at the serving shape
     q, k, v = (randn(BATCH, PROMPT, n, d, dtype=bf16) for n in (h, kvh, kvh))
@@ -241,19 +313,38 @@ def main() -> int:
     flops = 4 * BATCH * h * d * attn_pairs(PROMPT, PROMPT, True, 0, 0)
     bound_ms, bound_by = bound(nbytes, flops)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel = lambda: flash_mod.flash_attention(q, k, v, causal=True)
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
     records["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:120",
         max_abs_err=err,
-        ms=time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=True)),
+        ms=time_ms(kernel),
         plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=True)),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library_ms=time_ms(library),
     )
     phase("kernel", shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal",
-          bytes=nbytes, flops=flops, **records["flash_attention"])
+          bytes=nbytes, flops=flops, **records["flash_attention"],
+          ms_cold_l2=time_ms(kernel, flush=flush), library_ms_cold_l2=time_ms(library, flush=flush),
+          library_kernels=library_kernels(library))
+
+    # where the flash kernel stands against the library call beyond the
+    # serving shape: 1, 2 and 4 KV tiles a block without a mask, and a long
+    # causal prompt
+    def flash_against_library(sq, skv, causal):
+        q, k, v = (randn(BATCH, rows, n, d, dtype=bf16)
+                   for rows, n in ((sq, h), (skv, kvh), (skv, kvh)))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return dict(shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal={causal}",
+                    ms=time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=causal)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)))
+
+    for sq, skv, causal in FLASH_SWEEP:
+        phase("flash-sweep", **flash_against_library(sq, skv, causal))
 
     # decode at the serving shape: cache 1024, lengths as the serving run's
     # decode steps see them (prompt + 1 .. prompt + MAX_NEW - 1), ragged
@@ -271,19 +362,24 @@ def main() -> int:
     bound_ms, bound_by = bound(nbytes, flops)
     mask = (torch.arange(CACHE, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    kernel = lambda: dec_mod.decode_attention(q, kc, vc, lens)
+    library = lambda: F.scaled_dot_product_attention(
+        q4, kt, vt, attn_mask=mask, enable_gqa=True)
     records["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:99",
         max_abs_err=err,
-        ms=time_ms(lambda: dec_mod.decode_attention(q, kc, vc, lens), iters=100),
+        ms=time_ms(kernel, iters=100),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens), iters=100),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=mask, enable_gqa=True), iters=100),
+        library_ms=time_ms(library, iters=100),
     )
     phase("kernel", shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} lengths "
-          f"{lens.tolist()} bf16", bytes=nbytes, flops=flops, **records["decode_attention"])
+          f"{lens.tolist()} bf16", bytes=nbytes, flops=flops, **records["decode_attention"],
+          split=dec_mod.SPLIT, ms_cold_l2=time_ms(kernel, iters=100, flush=flush),
+          library_ms_cold_l2=time_ms(library, iters=100, flush=flush))
+    del flush
 
     # -- 4. serving: the main path ----------------------------------------
     t0 = time.perf_counter()

@@ -130,7 +130,8 @@ class CudaKernel:
 def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int) -> None:
     """Raise on what the attention kernels do not take: another device than
     one CUDA card, a dtype other than fp32 / bf16 (the same for all), a
-    non-contiguous tensor, or a head dim other than 32, 64 or 128."""
+    non-contiguous tensor, one not 16-byte aligned (the kernels load 16 bytes
+    a lane), or a head dim other than 32, 64 or 128."""
     first = next(iter(tensors.values()))
     for arg, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
@@ -141,5 +142,7 @@ def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int
                              "bfloat16, the same for every input")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")

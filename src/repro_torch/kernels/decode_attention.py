@@ -6,14 +6,18 @@ The kernel is ``csrc/decode_attention.cu``; its plain version, which a CPU
 tensor takes, is :func:`repro_torch.kernels.ref.decode_attention_ref`.
 
 What bounds it on the H100: the bytes. Each step reads every valid cached
-key and value once (2 x B x length x KVH x D x 2 bytes in bf16, 4.7 MB at
-llama3.2-1b's serving batch 8 and length 288) for 4 FLOPs per key and query
-head, far below the card's 295 FLOPs per byte. What the design does about
-it: one block per (kv head, sequence) scores each KV tile against the whole
-query group (4 heads for llama3.2-1b), so the cache is read once per group,
-and stops at the sequence's length. With B x KVH = 64 blocks on 132 SMs it
-leaves half the card idle; a split-KV grid with a combine pass is the next
-step.
+key and value once (2 x B x length x KVH x D x 2 bytes in bf16, 4.5 MB at
+llama3.2-1b's serving batch 8 and lengths near 270) for 4 FLOPs per key and
+query head, far below the card's 295 FLOPs per byte. What the design does
+about it: split-KV (flash-decoding). The cache is cut into splits of
+``SPLIT`` keys, one block each, that score their keys against the whole
+query group (4 heads for llama3.2-1b) with 16-byte loads, so the cache is
+read once per group; splits past a sequence's length read nothing. A second
+kernel, launched by the same C entry point, merges the splits' partial
+(m, l, acc), which live in fp32 scratch this wrapper allocates. The number
+of splits comes from the cache length ``S``, never from ``lengths``, so no
+launch reads the device. Its plain version of the split algorithm is
+:func:`repro_torch.kernels.ref.decode_attention_split_ref`.
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from .ref import decode_attention_ref as plain
 
 KERNEL = _build.CudaKernel(
     "decode_attention.cu", "decode_attention_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 )
+SPLIT = 64  # keys per split: SPLIT in csrc/decode_attention.cu
 
 
 def decode_attention(
@@ -59,9 +64,14 @@ def decode_attention(
                          f"on {lengths.device}")
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
     out = torch.empty_like(q)
+    # the partials of every (sequence, kv head, split, head of the group), in one
+    # allocation: acc (d floats each), then m, then l
+    n_part = b * kvh * -(-s_len // SPLIT) * (h // kvh)
+    scratch = torch.empty(n_part * (d + 2), dtype=torch.float32, device=q.device)
+    acc, m_part, l_part = scratch.split([n_part * d, n_part, n_part])
     KERNEL.launch(
         q.device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s_len, h, kvh, d,
-        scale, float(softcap),
+        out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, s_len, h, kvh, d, scale, float(softcap),
     )
     return out

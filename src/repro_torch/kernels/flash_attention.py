@@ -8,13 +8,14 @@ tensor takes, is :func:`repro_torch.kernels.ref.attention_ref`.
 What bounds it on the H100: at llama3.2-1b's serving prefill (B=8, S=256,
 32 query heads, 8 kv heads, D=64, bf16, causal) the work is about 2.2 GFLOP
 against 21 MB of q, k, v and output, so the card's bound is the bytes
-(6.3 us at 3.35 TB/s, against 2.2 us at 989 TFLOP/s bf16). This first kernel
-runs both products on CUDA cores in fp32 from shared memory, so its FLOPs,
-not its bytes, set its time. What the design does about the bytes: one block
-per (64-row q tile, batch x head) loads its q tile once and streams the kv
-head's tiles through shared memory, skipping tiles outside the causal or
-window support, and never writes scores to device memory. Tensor cores
-(mma / wgmma) are the next step.
+(6.3 us at 3.35 TB/s, against 2.2 us at 989 TFLOP/s bf16). What the design
+does about it: one block per (64-row q tile, batch x head) loads its q tile
+once and streams the kv head's tiles through shared memory, skipping tiles
+outside the causal or window support, and never writes scores to device
+memory. bf16 runs both products on the tensor cores (``mma.sync``, P rounded
+to bf16 for the second) with the tiles in a double-buffered ``cp.async``
+ring; fp32 keeps CUDA-core FMAs so that it holds the fp32 tolerance. The
+source's note has the details.
 """
 from __future__ import annotations
 

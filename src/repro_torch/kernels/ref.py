@@ -140,3 +140,51 @@ def decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhk,bkhd->bhd", p, vb.float())
     return o.to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,  # (B, H, D) one new token per sequence
+    k_cache: torch.Tensor,  # (B, S, KVH, D)
+    v_cache: torch.Tensor,  # (B, S, KVH, D)
+    lengths: torch.Tensor,  # (B,) int32: number of valid cache positions
+    *,
+    split: int,
+    sm_scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The split-KV algorithm of ``csrc/decode_attention.cu`` in plain PyTorch.
+
+    Each split of ``split`` keys gets a partial (m, l, acc) with the finite
+    ``NEG_INF``; a split at or past the length is empty (m = NEG_INF, l = 0,
+    acc = 0); the partials merge as out = sum exp(m_i - M) acc_i / sum
+    exp(m_i - M) l_i, and a sum of 0 (length 0) gives zeros, as the Pallas
+    kernel does (``decode_attention_ref`` averages V there instead). The tests
+    and ``chip_smoke.py`` hold the kernel's algorithm to it; no serving path
+    calls it.
+    """
+    b, h, d = q.shape
+    s_len = k_cache.shape[1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    n = -(-s_len // split)
+    pad = n * split - s_len
+    kb = F.pad(_broadcast_kv(k_cache, h).float(), (0, 0, 0, 0, 0, pad))  # (B, n*split, H, D)
+    vb = F.pad(_broadcast_kv(v_cache, h).float(), (0, 0, 0, 0, 0, pad))
+    lens = lengths.clamp(0, s_len)
+    valid = torch.arange(n * split, device=q.device)[None, :] < lens[:, None]  # (B, n*split)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kb) * scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(valid[:, None, :], s, NEG_INF).view(b, h, n, split)
+    m = s.amax(dim=-1)  # (B, H, n)
+    p = torch.exp(s - m[..., None])
+    row_sum = p.sum(dim=-1)
+    vb = torch.where(valid[:, :, None, None], vb, 0.0).view(b, n, split, h, d)
+    acc = torch.einsum("bhns,bnshd->bhnd", p, vb)
+    live = (torch.arange(n, device=q.device)[None, :] * split < lens[:, None])[:, None, :]
+    m = torch.where(live, m, NEG_INF)
+    row_sum = torch.where(live, row_sum, 0.0)
+    acc = torch.where(live[..., None], acc, 0.0)
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))  # (B, H, n)
+    total = (w * row_sum).sum(dim=-1)
+    out = (w[..., None] * acc).sum(dim=-2) / torch.where(total == 0.0, 1.0, total)[..., None]
+    return out.to(q.dtype)

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
 The cases are ``chip_smoke.py``'s: those of ``tests/test_kernels.py`` plus
-softcap and ``q_offset`` cases (``tests/test_torch_kernels.py`` checks that
-the copies agree). This file imports no JAX, so it runs on a GPU machine
+softcap, ``q_offset``, ragged-tile and explicit-length cases
+(``tests/test_torch_kernels.py`` checks that the copies agree). This file imports no JAX, so it runs on a GPU machine
 without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -76,6 +76,28 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES)
+def test_decode_kernel_explicit_lengths(cuda, case, dtype):
+    """Length 0 (zeros, as the split algorithm and the Pallas kernel give), S,
+    a split boundary and one past a split."""
+    b, s, h, kvh, d, softcap, lengths = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, (b, h, d), dtype, cuda)
+    k, v = (_randn(gen, (b, s, kvh, d), dtype, cuda) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    launches = tdecode.KERNEL.launches
+    out = tdecode.decode_attention(q, k, v, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert tdecode.KERNEL.launches == launches + 1
+    want = tref.decode_attention_split_ref(q, k, v, lens, split=tdecode.SPLIT, softcap=softcap)
+    assert float((out.float() - want.float()).abs().max()) < chip_smoke.TOL[dtype]
+    rows = lens > 0
+    plain = tref.decode_attention_ref(q, k, v, lens, softcap=softcap)
+    assert float((out[rows].float() - plain[rows].float()).abs().max()) < chip_smoke.TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 4, 48), device=cuda)  # head dim 48
     k = torch.zeros((1, 8, 2, 48), device=cuda)
@@ -87,6 +109,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tflash.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash.flash_attention(torch.zeros(1 + q.numel(), device=cuda)[1:].view(q.shape), k, k)
     lens = torch.ones((1,), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         tdecode.decode_attention(q[:, 0], k, k, lens)

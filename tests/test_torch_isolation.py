@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 # the port, and what runs on a GPU machine that may have no JAX
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_attention.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -34,6 +34,18 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 15  # every module of the slice was imported
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py"])
+def test_card_scripts_exit_nonzero_without_a_card(script):
+    """Without a CUDA device the scripts print no result and fail."""
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, str(ROOT / script)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "ms" not in res.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -42,9 +42,21 @@ FLASH_PARAMS = [(b, s, s, h, kvh, d, causal, window, 0.0, 0)
     (1, 128, 128, 4, 2, 64, True, 0, 30.0, 0),     # softcap
     (2, 64, 192, 4, 2, 64, True, 0, 0.0, 128),     # q_offset: the last 64 rows of 192
     (1, 96, 320, 4, 1, 32, True, 64, 25.0, 224),   # q_offset + window + softcap, MQA
+    (1, 100, 100, 4, 2, 64, True, 0, 0.0, 0),      # Sq, Skv not multiples of 16
+    (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),    # non-causal, D=128, partial KV tile
 ]
 # (b, s, h, kvh, d, softcap)
 DECODE_PARAMS = [case + (0.0,) for case in DECODE_CASES] + [(2, 512, 8, 2, 64, 25.0)]
+# explicit lengths: 0, S, on a split boundary, one past a split
+# (b, s, h, kvh, d, softcap, lengths)
+DECODE_LENGTH_PARAMS = [
+    (5, 300, 8, 2, 64, 0.0, (0, 300, 128, 65, 129)),
+    (4, 256, 4, 1, 128, 25.0, (0, 256, 64, 129)),
+    (3, 192, 14, 2, 32, 0.0, (192, 0, 65)),     # group 7
+]
+# splits of the plain split algorithm: the kernel's, and the Pallas kernel's
+# block_k of these tests
+SPLITS = (tdecode.SPLIT, 128)
 
 
 def _normal(rng, shape):
@@ -109,10 +121,53 @@ def test_decode_plain_matches_jax(case, dtype):
     assert _err(out, oracle) < TOL[dtype]
 
 
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_PARAMS)
+def test_decode_split_plain_matches_jax(case, dtype, split):
+    """The split-KV algorithm of the decode kernel (partials per split, then
+    the combine) in plain torch, against the Pallas kernel and the JAX oracle."""
+    arrays, lengths, softcap = _decode_inputs(case)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(lengths), softcap=softcap,
+                           block_k=128, interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths), softcap=softcap)
+    out = tref.decode_attention_split_ref(tq, tk, tv, torch.from_numpy(lengths), split=split,
+                                          softcap=softcap)
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == tuple(pallas.shape)
+    assert _err(out, pallas) < TOL[dtype]
+    assert _err(out, oracle) < TOL[dtype]
+    plain = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths), softcap=softcap)
+    assert float((out.float() - plain.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_LENGTH_PARAMS)
+def test_decode_split_plain_explicit_lengths(case, dtype, split):
+    """Empty splits and the edges of a split: length 0 gives zeros, as the
+    Pallas kernel does; rows of length > 0 also match ``decode_attention_ref``
+    (which averages V over a row of length 0)."""
+    *shape, lengths = case
+    arrays, _, softcap = _decode_inputs(tuple(shape))
+    lengths = np.asarray(lengths, dtype=np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(lengths), softcap=softcap,
+                           block_k=128, interpret=True)
+    out = tref.decode_attention_split_ref(tq, tk, tv, torch.from_numpy(lengths), split=split,
+                                          softcap=softcap)
+    assert _err(out, pallas) < TOL[dtype]
+    assert not out[torch.from_numpy(lengths == 0)].float().abs().any()
+    rows = torch.from_numpy(lengths > 0)
+    plain = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths), softcap=softcap)
+    assert float((out[rows].float() - plain[rows].float()).abs().max()) < TOL[dtype]
+
+
 def test_chip_smoke_holds_the_same_cases():
     """chip_smoke.py, which cannot import the JAX tests, keeps a copy of these cases."""
     assert chip_smoke.FLASH_CASES == FLASH_PARAMS
     assert chip_smoke.DECODE_CASES == DECODE_PARAMS
+    assert chip_smoke.DECODE_LENGTH_CASES == DECODE_LENGTH_PARAMS
     assert {str(k).split(".")[-1]: v for k, v in chip_smoke.TOL.items()} == TOL
 
 
