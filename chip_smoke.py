@@ -9,7 +9,10 @@ PyTorch version on the card, times both, then serves llama3.2-1b at full
 width (16 layers, d_model 2048, bf16, random weights from seed 0) through
 ``ModelServer.generate`` and a two-data-center ``Fleet``, and checks that the
 serving path went through both kernels and that its logits and tokens are
-sane. Phases print one line each; the second line from the end is the
+sane. Then it drives the scheduler path (``repro_torch.core.run``): the
+paper's fleets built on the card, one day of fd and a few hours of nash on
+each, held against the same runs on the host CPU, and a profile of one fd
+hour. Phases print one line each; the second line from the end is the
 kernels' JSON record and the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, without a result, when there is no CUDA device or the
@@ -32,6 +35,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import ExperimentSpec, run  # noqa: E402
+from repro_torch.dcsim import env as sched_env  # noqa: E402
+from repro_torch.dcsim import latency  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
@@ -92,6 +98,24 @@ ARCH, BATCH, PROMPT, MAX_NEW, CACHE = "llama3.2-1b", 8, 256, 32, 1024
 # path is held by its distance from the fp32 logits instead
 FP32_LOGIT_RTOL, FP32_LOGIT_ATOL = 1e-4, 1e-3
 BF16_LOGIT_FACTOR = 2.0
+
+# scheduler path: the paper's fleets (D = 16 is its largest), the SLA priced
+# and the WAN visible, objective cost_sla. (technique, D, routed, hours)
+SCHED_CASES = [("fd", d, routed, 24) for d in (4, 8, 16) for routed in (False, True)]
+# nash takes 6 sweeps x I players x 40 gradient steps an hour, about 27 s an
+# hour on the card (launch-bound); 2 hours keep each case near a minute
+NASH_HOURS = 2
+SCHED_CASES += [("nash", 4, False, NASH_HOURS), ("nash", 16, False, NASH_HOURS)]
+SLA_PRICE = 1e-4  # $/task per expected SLA miss
+# the card's day against the host CPU's: the day's cost (what the solvers
+# minimize) agrees closely; carbon and SLA cost move along directions the
+# objective barely sees, where float32 sums in another order settle the
+# solvers elsewhere (fd keeps the best of iterates that tie within an ulp,
+# nash's normalized gradient steps come from cancelling ~1e6 $/h terms), so
+# they are held loosely
+SCHED_OBJECTIVE_RTOL = 5e-4
+SCHED_OTHER_RTOL = 1e-1
+SCHED_VIOLATION_SHARE = 1e-5  # violation / Σ CAR: float32 rounding of the sums
 
 
 def fail(msg: str) -> None:
@@ -468,6 +492,9 @@ def main() -> int:
           tok_s={str(k): f"{v:.1f}" for k, v in report["per_server_tps"].items()})
     del fleet
 
+    # -- 6. the scheduler path: fleet env, game, simulator ----------------
+    sched_phases(dev)
+
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -476,6 +503,96 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def priced_env(num_dcs: int, device) -> sched_env.EnvParams:
+    """The paper's fleet of ``num_dcs`` DCs with the WAN visible (the RTT
+    matrix of its cities) and SLA misses priced."""
+    env = sched_env.build_env(num_dcs, seed=0, device=device)
+    rtt = torch.from_numpy(latency.rtt_matrix(num_dcs=num_dcs).astype(np.float32))
+    return env._replace(rtt=rtt.to(env.rtt.device),
+                        sla_price=torch.full_like(env.sla_price, SLA_PRICE))
+
+
+def timed_day(spec: ExperimentSpec, env) -> tuple:
+    """(result, ms): ``run`` ends in one transfer to the host, so the host
+    clock around it counts the device's work."""
+    if env.er.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = run(spec, env)
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def sched_phases(dev: torch.device) -> None:
+    """Build the fleets on the card, play days on it against the host CPU,
+    and profile one fd hour."""
+    cpu = torch.device("cpu")
+    for workload in ("aibench", "llm"):
+        t0 = time.perf_counter()
+        on_card = sched_env.build_env(16, seed=0, workload=workload, device=dev)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        on_host = sched_env.build_env(16, seed=0, workload=workload, device=cpu)
+        for name in sched_env.EnvParams._fields:
+            a, b = getattr(on_card, name), getattr(on_host, name)
+            if a.device.type != dev.type or a.dtype != torch.float32 or not torch.equal(a.cpu(), b):
+                fail(f"sched-env {workload} field {name} differs from the CPU build")
+        phase("sched-env", workload=workload, num_dcs=16,
+              players=sched_env.num_players(on_card), fields=len(on_card),
+              equal_to_cpu=True, build_ms=f"{card_ms:.1f}")
+
+    for technique, d, routed, hours in SCHED_CASES:
+        spec = ExperimentSpec(technique=technique, objective="cost_sla", routed=routed,
+                              hours=hours)
+        env_card, env_host = priced_env(d, dev), priced_env(d, cpu)
+        card, card_ms = timed_day(spec, env_card)
+        host, host_ms = timed_day(spec, env_host)
+        rel = {k: abs(card["totals"][k] - host["totals"][k]) / abs(host["totals"][k])
+               for k in ("carbon_kg", "cost_usd", "sla_miss_cost_usd")}
+        sum_car = float(env_host.car[:, :hours].double().sum())
+        share = {"card": card["totals"]["violation"] / sum_car,
+                 "cpu": host["totals"]["violation"] / sum_car}
+        rows_ok = all(np.isfinite(list(r.values())).all() for r in card["per_epoch"])
+        phase("sched", technique=technique, num_dcs=d, routed=routed, objective="cost_sla",
+              hours=hours, **{k: f"{v:.6g}" for k, v in card["totals"].items()},
+              cost_rel_diff=f"{rel['cost_usd']:.3g}", max_rel_diff=f"{max(rel.values()):.3g}",
+              violation_share=f"{share['card']:.3g}", card_ms=f"{card_ms:.1f}",
+              cpu_ms=f"{host_ms:.1f}",
+              tol=f"cost {SCHED_OBJECTIVE_RTOL}, others {SCHED_OTHER_RTOL}")
+        if not rows_ok or len(card["per_epoch"]) != hours:
+            fail(f"sched {technique} D={d}: {len(card['per_epoch'])} rows, finite {rows_ok}")
+        if not rel["cost_usd"] <= SCHED_OBJECTIVE_RTOL or not max(rel.values()) <= SCHED_OTHER_RTOL:
+            fail(f"sched {technique} D={d} routed={routed}: card vs CPU {rel}")
+        if not max(abs(v) for v in share.values()) <= SCHED_VIOLATION_SHARE:
+            fail(f"sched {technique} D={d}: violation share {share}")
+
+    # where the time of one fd hour goes on the card (D = 16, routed)
+    from torch.profiler import ProfilerActivity, profile
+
+    env = priced_env(16, dev)
+    spec = ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=1)
+    _, plain_ms = timed_day(spec, env)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed_day(spec, env)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # the host side: which operators' own time fills the hour
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:5]
+    phase("sched-profile", technique="fd", num_dcs=16, routed=True, hours=1,
+          host_ms_unprofiled=f"{plain_ms:.1f}", wall_ms=f"{wall_ms:.1f}",
+          device_busy_ms=f"{busy_ms:.3f}" if kernels else "not measured",
+          idle_share=f"{1 - busy_ms / wall_ms:.3f}" if kernels else "not measured",
+          idle_share_unprofiled=f"{1 - busy_ms / plain_ms:.3f}" if kernels else "not measured",
+          kernels=n, us_per_kernel=f"{busy_ms * 1e3 / n:.2f}" if n else "not measured",
+          top="; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
+                        for e in top),
+          host_top="; ".join(f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.1f}ms"
+                             for e in host))
 
 
 def _tree_map(fn, node):

@@ -3,6 +3,8 @@
 The port keeps its own copy so that it imports nothing of ``repro``. Every
 field is kept, so ``dataclasses.replace`` takes the same arguments in both
 packages; the model code rejects the features the port does not run yet.
+``param_count`` sizes the ``llm`` workload's model families
+(``dcsim.capability``), including archs the model code does not run.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 ATTN = "attn"  # full / local self attention block
+MLSTM = "mlstm"  # xLSTM matrix-memory block
+SLSTM = "slstm"  # xLSTM scalar-memory block
+RECUR = "recur"  # RG-LRU (Griffin) recurrent block
 
 
 @dataclass(frozen=True)
@@ -85,6 +90,69 @@ class ModelConfig:
 
     def pattern_period(self) -> Tuple[str, ...]:
         return self.block_pattern if self.block_pattern else (ATTN,)
+
+    # -- param counting (for roofline MODEL_FLOPS = 6*N*D) --------------------
+    def param_count(self, active_only: bool = False) -> int:
+        d, hd = self.d_model, self.hd()
+        qd, kvd = self.q_dim(), self.kv_dim()
+        embed = self.vocab_size * d
+        unembed = 0 if self.tie_embeddings else self.vocab_size * d
+
+        def attn_block() -> int:
+            n = d * qd + 2 * d * kvd + qd * d
+            if self.qkv_bias:
+                n += qd + 2 * kvd
+            return n + 2 * d  # 2 norms approx
+
+        def ffn(dff: int) -> int:
+            if dff == 0:
+                return 0
+            if self.act == "silu":
+                return 3 * d * dff
+            return 2 * d * dff
+
+        def moe_block() -> int:
+            n = d * self.num_experts  # router
+            e = self.num_experts if not active_only else self.num_experts_per_tok
+            n += e * ffn(self.d_ff)
+            n += self.num_shared_experts * ffn(self.shared_d_ff or self.d_ff)
+            if self.moe_dense_residual:
+                n += ffn(self.moe_dense_d_ff or self.d_ff)
+            return n
+
+        def mlstm_block() -> int:
+            # up-proj x2, q/k/v over inner dim, gates, out-proj (pf = 2)
+            inner = 2 * d
+            return 2 * d * inner + 3 * inner * inner // 2 + inner * d + 4 * inner
+
+        def slstm_block() -> int:
+            # 4 gates, recurrent + input weights, ffn-ish projection (pf 4/3)
+            return 8 * d * d + int(2 * 4 / 3 * d * d)
+
+        def recur_block() -> int:
+            w = self.lru_width or d
+            return 2 * d * w + w * d + self.conv_width * w + 2 * w * w + 2 * w
+
+        total = embed + unembed + d  # final norm
+        for kind in self.pattern():
+            if kind == ATTN:
+                total += attn_block()
+                if self.num_experts:
+                    total += moe_block()
+                else:
+                    total += ffn(self.d_ff)
+            elif kind == MLSTM:
+                total += mlstm_block()
+            elif kind == SLSTM:
+                total += slstm_block()
+            elif kind == RECUR:
+                total += recur_block() + ffn(self.d_ff)
+        if self.is_encoder_decoder:
+            for _ in range(self.num_encoder_layers):
+                total += attn_block() + ffn(self.d_ff)
+            # decoder cross attention
+            total += self.num_layers * attn_block()
+        return int(total)
 
     # -- reduced variant for CPU smoke tests -------------------------------
     def smoke(self) -> "ModelConfig":

@@ -1,0 +1,177 @@
+"""The port's day engine (``repro_torch.core.run``) against the JAX package, on the CPU.
+
+The fd day is held per hour at rtol 1e-5 on every metric but ``violation``.
+``violation`` is float32 rounding of the allocation's sums (|Σ_d AR − CAR|,
+with CAR ~1e8 tasks/h), so it is held at an absolute 1e-6 of the hour's Σ CAR:
+both packages land near 1e-7 of it. The default objective (carbon) is used: a
+day under ``cost_sla`` on an SLA-priced env follows the reference's objective
+but not its allocation (``test_fd_day_cost_sla_holds_the_objective`` says why).
+"""
+# ruff: noqa: E402
+import numpy as np
+import pytest
+
+# the port needs torch; the imports below need the port (hence the E402 waiver)
+torch = pytest.importorskip("torch")
+
+from repro import scenarios as S
+from repro.core import ExperimentSpec as JaxSpec
+from repro.core import run as jax_run
+from repro.core.nash import NashConfig as JaxNash
+from repro.dcsim import env as JE
+from repro_torch.convert import env_from_numpy
+from repro_torch.core import ExperimentSpec, game, run
+from repro_torch.core.nash import NashConfig
+from repro_torch.dcsim import env as TE
+
+ENV = JE.build_env(4, seed=0)
+SLA_ENV = S.make("wan_degradation", factor=3.0, extra_ms=30.0)(
+    S.make("sla_tighten", tighten=0.6, price=1e-4)(ENV))
+SHIFTED = S.make("origin_shift", toward=[0], weight=0.8)(SLA_ENV)
+
+
+def _carry(jenv):
+    return env_from_numpy({k: np.asarray(v) for k, v in jenv._asdict().items()}, device="cpu")
+
+
+T_ENV, T_SHIFTED = TE.build_env(4, seed=0, device="cpu"), _carry(SHIFTED)
+
+
+def _hold_day(got, want, jenv, keys=None, rtol=1e-5):
+    assert got["technique"] == want["technique"] and got["objective"] == want["objective"]
+    assert len(got["per_epoch"]) == len(want["per_epoch"])
+    sum_car = np.asarray(jenv.car, np.float64).sum(axis=0)
+    for g, w in zip(got["per_epoch"], want["per_epoch"]):
+        assert set(g) == set(w) and g["tau"] == w["tau"]
+        for k in keys or (k for k in w if k not in ("tau", "violation")):
+            np.testing.assert_allclose(g[k], w[k], rtol=rtol, atol=1e-30, err_msg=(w["tau"], k))
+        assert abs(g["violation"] - w["violation"]) <= 1e-6 * sum_car[w["tau"]], w["tau"]
+    for k in keys or ("carbon_kg", "cost_usd", "sla_miss_cost_usd"):
+        np.testing.assert_allclose(got["totals"][k], want["totals"][k], rtol=rtol, err_msg=k)
+
+
+def test_fd_day_matches_jax():
+    """The slice's goal: run(ExperimentSpec(technique="fd", hours=24),
+    build_env(4, seed=0)) gives the reference's day."""
+    spec = dict(technique="fd", hours=24)
+    _hold_day(run(ExperimentSpec(**spec), T_ENV), jax_run(JaxSpec(**spec), ENV), ENV)
+
+
+def test_fd_routed_day_on_shifted_origins_matches_jax():
+    spec = dict(technique="fd", hours=24, routed=True)
+    _hold_day(run(ExperimentSpec(**spec), T_SHIFTED), jax_run(JaxSpec(**spec), SHIFTED), SHIFTED)
+
+
+@pytest.mark.parametrize("routed", [False, True], ids=["unrouted", "routed"])
+def test_fd_day_cost_sla_holds_the_objective(routed):
+    """Under ``cost_sla`` with the SLA priced, the cost (what fd minimizes)
+    matches the reference at rtol 1e-4 each hour and 1e-5 over the day, and
+    carbon and SLA cost at 1e-3 over the day (measured: 2.1e-5, 1.0e-6 and
+    3.8e-4 at most). They are not held tighter because fd keeps the best
+    iterate by ``v < best_v``, and at hours 0 and 2 distinct iterates tie
+    within one float32 ulp of their ~1.8e7 $/h value (the two bests differ by
+    2 $): the packages keep different allocations of equal cost, and the
+    monthly peak carries the difference into later hours. The forces
+    themselves agree from identical fractions (tests/test_torch_game.py)."""
+    spec = dict(technique="fd", hours=24, routed=routed, objective="cost_sla")
+    got, want = run(ExperimentSpec(**spec), T_SHIFTED), jax_run(JaxSpec(**spec), SHIFTED)
+    _hold_day(got, want, SHIFTED, keys=("cost_usd",), rtol=1e-4)
+    np.testing.assert_allclose(got["totals"]["cost_usd"], want["totals"]["cost_usd"], rtol=1e-5)
+    for k in ("carbon_kg", "sla_miss_cost_usd"):
+        np.testing.assert_allclose(got["totals"][k], want["totals"][k], rtol=1e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("env_name,routed", [("paper", False), ("shifted", True)])
+def test_nash_hours_match_jax(env_name, routed):
+    jenv, tenv = {"paper": (ENV, T_ENV), "shifted": (SHIFTED, T_SHIFTED)}[env_name]
+    spec = dict(technique="nash", hours=3, routed=routed)
+    got = run(ExperimentSpec(cfg=NashConfig(sweeps=3, inner_steps=20), **spec), tenv)
+    want = jax_run(JaxSpec(cfg=JaxNash(sweeps=3, inner_steps=20), **spec), jenv)
+    _hold_day(got, want, jenv)
+
+
+@pytest.mark.parametrize("technique,cfg", [("fd", None),
+                                           ("nash", NashConfig(sweeps=1, inner_steps=5))])
+def test_routed_one_source_equals_unrouted_exactly(technique, cfg):
+    """One aggregate source region: the routed game is the unrouted one."""
+    agg = TE.aggregate_origin(T_SHIFTED)
+    spec = ExperimentSpec(technique=technique, hours=4, cfg=cfg, objective="cost_sla")
+    assert run(spec.replace(routed=True), agg) == run(spec, agg)
+
+
+def test_scan_equals_loop():
+    spec = ExperimentSpec(technique="fd", hours=5, routed=True)
+    assert run(spec, T_SHIFTED) == run(spec.replace(engine="loop"), T_SHIFTED)
+
+
+def test_prebuilt_solver_and_peak_state():
+    """``solver=`` drives the loop engine; ``peak_state0`` threads into the
+    first hour as in the reference."""
+    fd = game.get_technique("fd")
+    peak0 = np.full(4, 2e7, np.float32)
+    got = run(ExperimentSpec(technique="fd", hours=3, engine="loop"), T_ENV,
+              peak_state0=torch.from_numpy(peak0),
+              solver=lambda gen, ctx, peak: fd.step(gen, (), ctx, peak, fd.default_cfg)[1])
+    want = jax_run(JaxSpec(technique="fd", hours=3), ENV, peak_state0=peak0)
+    _hold_day(got, want, ENV)
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(engine="batched"), "A.7"),
+    (dict(engine="month"), "A.7"),
+    (dict(guard=True), "A.8"),
+    (dict(failover="drop"), "A.8"),
+    (dict(taps=("engine/hour",)), "A.9"),
+])
+def test_unported_spec_options_raise(option, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run(ExperimentSpec(hours=1, **option), T_ENV)
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(shard=True), "A.7"), (dict(record=True), "A.9"), (dict(faults=object()), "A.8")])
+def test_unported_run_options_raise(option, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run(ExperimentSpec(hours=1), T_ENV, **option)
+
+
+def test_stateful_technique_raises_and_unknown_technique_names_the_registered():
+    game.register_technique("stateful-test", step=lambda *a: None, stateful=True)
+    try:
+        with pytest.raises(NotImplementedError, match="A.5"):
+            run(ExperimentSpec(technique="stateful-test", hours=1), T_ENV)
+    finally:
+        game.unregister_technique("stateful-test")
+    with pytest.raises(KeyError, match="registered"):
+        run(ExperimentSpec(technique="gt-drl", hours=1), T_ENV)
+
+
+def test_spec_validation_and_mismatched_options():
+    for bad in (dict(engine="bogus"), dict(objective="bogus"), dict(failover="bogus"),
+                dict(workload=object())):
+        with pytest.raises(ValueError):
+            ExperimentSpec(**bad)
+    spec = ExperimentSpec(seeds=[1, 2], taps=[])
+    assert spec.seeds == (1, 2) and spec.taps == () and hash(spec)
+    assert spec.replace(hours=3).hours == 3
+    with pytest.raises(ValueError, match="loop"):
+        run(ExperimentSpec(hours=1), T_ENV, solver=lambda *a: None)
+    with pytest.raises(ValueError, match="scan-only"):
+        run(ExperimentSpec(hours=1, engine="loop"), T_ENV, solver_state0=())
+
+
+def test_spec_defaults_match_jax():
+    import dataclasses
+
+    want = {f.name: f.default for f in dataclasses.fields(JaxSpec)}
+    got = {f.name: f.default for f in dataclasses.fields(ExperimentSpec)}
+    assert got == want
+
+
+def test_build_env_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.build_env(4, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        env_from_numpy({k: np.asarray(v) for k, v in ENV._asdict().items()})

@@ -33,7 +33,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15  # every module of the slice was imported
+    assert int(res.stdout.strip()) >= 43  # every module of the port was imported
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py"])

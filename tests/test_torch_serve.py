@@ -58,7 +58,7 @@ def test_config_copy_matches_jax(smoke):
         jcfg, tcfg = jcfg.smoke(), tcfg.smoke()
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     with pytest.raises(KeyError, match=ARCH):
-        get_config("qwen2-7b")
+        get_config("llama3.2-3b")
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
