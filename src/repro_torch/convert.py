@@ -7,7 +7,9 @@ them as ``x @ w`` too. The scanned ``stack/layers`` subtree, whose leaves
 carry a leading ``num_layers`` axis, becomes a list of per-layer dicts.
 ``env_from_numpy`` carries an ``EnvParams`` across, so that both packages can
 be held on the same env, including one the JAX package's scenario transforms
-made.
+made. ``agents_from_jax`` and ``tree_from_jax`` carry the learning solvers'
+state (PPO agents with their AdamW states, DDPG's networks), so that both
+packages can start from the same agents.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.ppo import AgentState
 from .dcsim.env import EnvParams
 from .models.model import resolve_device
+from .tree import tree_map
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -26,12 +30,6 @@ def _to_torch(a, device) -> torch.Tensor:
         # torch.from_numpy refuses ml_dtypes' bfloat16: move the bits as int16
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
-
-
-def _map(node, fn):
-    if isinstance(node, dict):
-        return {k: _map(v, fn) for k, v in node.items()}
-    return fn(node)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
@@ -48,12 +46,12 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
             raise ValueError(f"stacked leaf of shape {np.shape(a)} has no leading "
                              f"num_layers={cfg.num_layers} axis")
 
-    _map(layers, check_depth)
+    tree_map(check_depth, layers)
     return {
-        "embed": _map(tree["embed"], lambda a: _to_torch(a, device)),
-        "stack": {"layers": [_map(layers, lambda a, i=i: _to_torch(a[i], device))
+        "embed": tree_map(lambda a: _to_torch(a, device), tree["embed"]),
+        "stack": {"layers": [tree_map(lambda a, i=i: _to_torch(a[i], device), layers)
                              for i in range(cfg.num_layers)]},
-        "final_norm": _map(tree["final_norm"], lambda a: _to_torch(a, device)),
+        "final_norm": tree_map(lambda a: _to_torch(a, device), tree["final_norm"]),
     }
 
 
@@ -75,3 +73,23 @@ def env_from_numpy(fields: Dict[str, np.ndarray], device="cuda"):
         raise ValueError(f"EnvParams fields must be float32, got {bad}")
     return EnvParams(**{k: _to_torch(np.asarray(fields[k]), device)
                         for k in EnvParams._fields})
+
+
+def tree_from_jax(tree, device="cuda"):
+    """A numpy copy of a JAX parameter tree (nested dicts of arrays, e.g. an
+    MLP of ``repro.core.networks``) as tensors on ``device``, dtypes kept."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
+
+
+def agents_from_jax(tree, device="cuda") -> AgentState:
+    """The port's ``AgentState`` from a numpy copy of a JAX ``AgentState``
+    (``jax.tree_util.tree_map(np.asarray, agents)``): actor, critic and both
+    AdamW states with their int32 ``step``, stacked (a leading player axis on
+    every leaf) or not."""
+    from .optim.adamw import OptState
+
+    if len(tree) != len(AgentState._fields):
+        raise ValueError(f"expected an AgentState of {AgentState._fields}, got {len(tree)} fields")
+    actor, critic, aopt, copt = (tree_from_jax(x, device) for x in tree)
+    return AgentState(actor, critic, OptState(*aopt), OptState(*copt))

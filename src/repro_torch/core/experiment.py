@@ -9,19 +9,32 @@ builds the result dict of the JAX package's ``run``.
 
 The ``scan`` and ``loop`` engines are one plain hour loop here: the JAX
 package compiles the day into one ``lax.scan`` artifact keyed by the spec,
-and jit keys have no torch counterpart, so there is no compile cache. What
-this port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item; nothing is ignored silently.
+and jit keys have no torch counterpart, so there is no compile cache. Both
+engines step the registered technique through one
+``schedulers.StatefulScheduler`` from the same initial state, so they give
+the same day exactly. What this port does not run
+yet raises ``NotImplementedError`` naming its ROADMAP.md item; nothing is
+ignored silently.
+
+Key discipline (the port's own; ``jax.random`` keys have no torch
+counterpart): ``spec.seed`` seeds a ``numpy.random.SeedSequence`` whose two
+children seed two CPU ``torch.Generator``s, one for the solver's initial
+state (gt-drl's pretraining) and one that every hour's solver draws from in
+turn. Drawing on the host makes a card run and a CPU run of one spec see
+the same draws.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..dcsim import env as E
-from . import force_directed, game, nash
+from . import game
+from . import schedulers as SCH
+from .draws import generator
 from .game import GameContext, fractions_to_ar
 
 _TOTAL_KEYS = ("carbon_kg", "cost_usd", "sla_miss_cost_usd", "violation")
@@ -33,12 +46,6 @@ ENGINES = ("scan", "loop", "batched", "month")
 FAILOVER_POLICIES = ("renormalize", "spill_nearest", "drop")
 DEFAULT_FAILOVER = "renormalize"
 
-# the techniques ported so far; ``get_technique`` names the rest as queued
-game.register_technique("fd", force_directed.solve_epoch,
-                        default_cfg=force_directed.FDConfig())
-game.register_technique("nash", nash.solve_epoch, default_cfg=nash.NashConfig())
-
-
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """One evaluation, declaratively: the fields, defaults and validation of
@@ -46,7 +53,7 @@ class ExperimentSpec:
 
     ``engine``: ``"scan"`` and ``"loop"`` run the day (one hour loop here);
     ``"batched"`` and ``"month"`` are validated but not run yet. ``seed``
-    seeds the ``torch.Generator`` handed to the solver each hour.
+    seeds the solver's generators (the module docstring says how).
     """
     technique: str = "fd"
     objective: str = "carbon"
@@ -95,9 +102,24 @@ def _unported(spec: ExperimentSpec, shard: bool, record: Any, faults: Any) -> Op
         return "realized faults, failover policies and the finite-guard: ROADMAP.md A.8"
     if spec.taps or record:
         return "telemetry taps and run records: ROADMAP.md A.9"
-    if game.get_technique(spec.technique).stateful:
-        return f"stateful technique {spec.technique!r}: ROADMAP.md A.5"
     return None
+
+
+def _generators(seed: int) -> Tuple[torch.Generator, torch.Generator]:
+    """(initial-state generator, per-hour generator), both from ``seed``."""
+    children = np.random.SeedSequence(seed).spawn(2)
+    return tuple(generator(int(c.generate_state(1)[0])) for c in children)
+
+
+def _day_inputs(env, technique, objective, seed, pretrain, cfg, solver_state0=None,
+                routed: bool = False):
+    """(per-hour generator, initial solver state) of a day. An injected
+    ``solver_state0`` skips building the state; the generators are the same."""
+    g_init, g_hour = _generators(seed)
+    if solver_state0 is not None:
+        return g_hour, solver_state0
+    t = game.get_technique(technique)
+    return g_hour, t.init_state(g_init, env, objective, t.resolve_cfg(cfg), routed, pretrain)
 
 
 def run(
@@ -124,7 +146,7 @@ def run(
     ``"tau"``, and the totals the hourly sums of ``carbon_kg``, ``cost_usd``,
     ``sla_miss_cost_usd`` and ``violation``.
     """
-    technique = game.get_technique(spec.technique)  # fails with the known names
+    game.get_technique(spec.technique)  # fails with the known names
     missing = _unported(spec, shard, record, faults)
     if missing:
         raise NotImplementedError(f"the port does not run {missing}")
@@ -136,28 +158,20 @@ def run(
                          "seed or a prebuilt solver=; solver_state0 is scan-only")
 
     device = env.er.device
-    gen = torch.Generator(device=device)
-    gen.manual_seed(spec.seed)
-    cfg = technique.resolve_cfg(spec.cfg)
     if solver is None:
-        state = (solver_state0 if solver_state0 is not None else
-                 technique.init_state(gen, env, spec.objective, cfg, spec.routed,
-                                      spec.pretrain))
-
-        def plan(ctx, peak):
-            nonlocal state
-            state, res = technique.step(gen, state, ctx, peak, cfg)
-            return res
+        # both engines step the registered technique from the same carry
+        gen, state0 = _day_inputs(env, spec.technique, spec.objective, spec.seed,
+                                  spec.pretrain, spec.cfg, solver_state0, spec.routed)
+        solver = SCH.StatefulScheduler(spec.technique, state0, spec.cfg).solve_epoch
     else:
-        def plan(ctx, peak):
-            return solver(gen, ctx, peak)
+        _, gen = _generators(spec.seed)
 
     peak = (peak_state0 if peak_state0 is not None
             else torch.zeros((E.num_dcs(env),), dtype=env.er.dtype, device=device))
     keys, rows = (), []
     for tau in range(spec.hours):
         ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
-        res = plan(ctx, peak)
+        res = solver(gen, ctx, peak)
         ar = fractions_to_ar(ctx, res.fractions)
         peak, m = E.step_epoch(env, peak, ar, tau)
         keys = tuple(m)

@@ -230,9 +230,7 @@ def get_technique(name: str) -> TechniqueDef:
         return _TECHNIQUES[name]
     except KeyError:
         raise KeyError(
-            f"unknown technique {name!r}; registered: {technique_names()}. The port "
-            "runs these so far; ROADMAP.md queues the others (A.5 gt-drl, A.6 ga, "
-            "ddpg, ppo)") from None
+            f"unknown technique {name!r}; registered: {technique_names()}") from None
 
 
 def technique_names() -> Tuple[str, ...]:

@@ -1,0 +1,31 @@
+"""Nested dicts, lists, tuples and NamedTuples of tensors: the port's pytrees.
+
+The JAX package's solvers thread pytrees (parameter dicts, ``OptState``,
+``AgentState``) through ``jax.tree_util``. These two functions are the part of
+it the port needs. Dict keys are visited in sorted order, as JAX flattens
+them, so a sum over the leaves runs in the reference's order.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to ``tree`` and the same-shaped ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        children = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*children)
+        return type(tree)(children)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves in JAX's order (sorted dict keys, sequence order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for c in tree for x in tree_leaves(c)]
+    return [tree]

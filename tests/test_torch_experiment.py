@@ -136,14 +136,24 @@ def test_unported_run_options_raise(option, item):
 
 
 def test_stateful_technique_raises_and_unknown_technique_names_the_registered():
-    game.register_technique("stateful-test", step=lambda *a: None, stateful=True)
+    """A registered stateful technique runs (its carry threads from hour to
+    hour, from ``init_state``); an unknown name raises with the known list."""
+    calls = []
+
+    def step(gen, state, ctx, peak, cfg):
+        calls.append(state)
+        return state + 1, game.SolveResult(game.uniform_fractions(ctx), {})
+
+    game.register_technique("stateful-test", step=step, stateful=True,
+                            init_state=lambda gen, env, obj, cfg, routed, pretrain: 10)
     try:
-        with pytest.raises(NotImplementedError, match="A.5"):
-            run(ExperimentSpec(technique="stateful-test", hours=1), T_ENV)
+        run(ExperimentSpec(technique="stateful-test", hours=3), T_ENV)
+        run(ExperimentSpec(technique="stateful-test", hours=2, engine="loop"), T_ENV)
     finally:
         game.unregister_technique("stateful-test")
+    assert calls == [10, 11, 12, 10, 11]
     with pytest.raises(KeyError, match="registered"):
-        run(ExperimentSpec(technique="gt-drl", hours=1), T_ENV)
+        run(ExperimentSpec(technique="bogus", hours=1), T_ENV)
 
 
 def test_spec_validation_and_mismatched_options():

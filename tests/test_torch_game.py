@@ -291,12 +291,15 @@ def test_nash_solve_epoch_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_registry_names_the_ported_techniques():
-    assert TG.technique_names() == ("fd", "nash")
+    """The paper's six, in the reference's order, with its default configs."""
+    assert TG.technique_names() == JG.technique_names() == (
+        "fd", "ga", "nash", "ddpg", "ppo", "gt-drl")
     assert TG.get_technique("fd").default_cfg == TFD.FDConfig()
     assert TG.get_technique("nash").default_cfg == TN.NashConfig()
-    for name in ("gt-drl", "ga", "ddpg", "ppo", "bogus"):
-        with pytest.raises(KeyError, match=r"registered: \('fd', 'nash'\).*ROADMAP\.md"):
-            TG.get_technique(name)
+    assert TG.get_technique("gt-drl").stateful and not TG.get_technique("ga").stateful
+    with pytest.raises(KeyError, match=r"registered: \('fd', 'ga', 'nash', 'ddpg', 'ppo', "
+                                       r"'gt-drl'\)"):
+        TG.get_technique("bogus")
 
 
 def test_register_and_unregister_a_technique():

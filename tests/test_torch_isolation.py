@@ -33,7 +33,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 43  # every module of the port was imported
+    assert int(res.stdout.strip()) >= 54  # every module of the port was imported
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py"])
@@ -46,6 +46,24 @@ def test_card_scripts_exit_nonzero_without_a_card(script):
                          text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and "ms" not in res.stdout
+
+
+# what a solver's step runs, hour after hour, on the card
+SOLVER_FILES = [ROOT / "src" / "repro_torch" / "optim" / "adamw.py"] + [
+    ROOT / "src" / "repro_torch" / "core" / f"{m}.py"
+    for m in ("game", "force_directed", "nash", "networks", "draws", "ppo", "gt_drl", "genetic",
+              "ppo_joint", "ddpg")] + [
+    ROOT / "src" / "repro_torch" / "dcsim" / f"{m}.py" for m in ("env", "latency", "ties")]
+
+
+@pytest.mark.parametrize("path", SOLVER_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_solver_steps_read_nothing_back_from_the_device(path):
+    """No read back to the host in a solver's code: each would stall the
+    card's queue every step. (chip_smoke.py also runs a gt-drl half-update
+    under CUDA's sync debug mode, which fails on a synchronizing call.)"""
+    src = path.read_text()
+    for read in (".item(", ".tolist(", ".cpu(", ".numpy(", "synchronize("):
+        assert read not in src, f"{path.relative_to(ROOT)} calls {read}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
