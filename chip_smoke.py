@@ -20,7 +20,16 @@ fleets built on the card:
   process of this script (``--cpu-reference PATH``) runs beside the card's
   work;
 - ``[compare]``: ``compare_techniques`` ranking the paper's six techniques
-  over two fleets; ``[sched-profile]``: one fd hour under the profiler.
+  over two fleets on its default batched engine (fd held against the hour
+  loop); ``[sched-profile]``: one fd hour under the profiler;
+- the scenario engine at D = 16: ``[scenarios]`` (every suite built on the
+  card, equal to the CPU build), ``[sched-batched]`` (fd over the 11-day
+  stress suite under one vmap a hour, rows against the card's scan days,
+  then a profiled batched hour), ``[sched-month]`` (days in a row, the peak
+  threaded), ``[sched-faults]`` (a crash and a brownout under each failover
+  policy, and a stacked random trace a row on the batched engine) and
+  ``[sweep]`` (a severity grid, then killed after two chunks and resumed
+  from its journal); each run against the same spec on the host CPU.
 
 Phases print one line each; the second line from the end is the kernels'
 JSON record and the last line ``{"ok": true, "device": ...}``.
@@ -45,8 +54,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import faults as fault_mod  # noqa: E402
+from repro_torch import scenarios  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import ExperimentSpec, compare_techniques, run  # noqa: E402
+from repro_torch.core import ExperimentSpec, compare_techniques, run, sweep  # noqa: E402
 from repro_torch.core import experiment, game, gt_drl, schedulers  # noqa: E402
 from repro_torch.core.draws import generator  # noqa: E402
 from repro_torch.core.schedulers import StatefulScheduler  # noqa: E402
@@ -116,10 +127,10 @@ BF16_LOGIT_FACTOR = 2.0
 
 # scheduler path: the paper's fleets (D = 16 is its largest), the SLA priced
 # and the WAN visible, objective cost_sla. (technique, D, routed, hours): fd
-# plays a whole day at D = 16 and 2 hours at D = 4 and 8; nash takes 6
-# sweeps x I players x 40 gradient steps an hour (~20 s an hour on the card,
+# plays 6 hours at D = 16 and 2 hours at D = 4 and 8; nash takes 6 sweeps x
+# I players x 40 gradient steps an hour (~20 s an hour on the card,
 # launch-bound), so it plays one hour at D = 16
-SCHED_CASES = [("fd", d, routed, 24 if d == 16 else 2) for d in (4, 8, 16)
+SCHED_CASES = [("fd", d, routed, 6 if d == 16 else 2) for d in (4, 8, 16)
                for routed in (False, True)]
 SCHED_CASES += [("nash", 16, False, 1)]
 # gt-drl at the paper's default config, pretrained (15 steps of 4 contexts,
@@ -136,6 +147,14 @@ SLA_PRICE = 1e-4  # $/task per expected SLA miss
 SCHED_OBJECTIVE_RTOL = 5e-4
 SCHED_OTHER_RTOL = 1e-1
 SCHED_VIOLATION_SHARE = 1e-5  # violation / Σ CAR: float32 rounding of the sums
+# the violation and unserved mass of a scenario-engine run, card against CPU:
+# under a failover policy that drops, both are the shed load, which follows
+# fd's plan (picked between iterates tied within an ulp) as carbon does: held
+# within the larger of SCHED_VIOLATION_SHARE of Σ CAR and SHED_RTOL of their
+# value (1.1e-3 of it apart, routed drop, on an H100 80GB HBM3). Replayed on
+# the card from the CPU's own plans, the failover itself is held within
+# SCHED_VIOLATION_SHARE of Σ CAR alone
+SHED_RTOL = 1e-2
 # one gt-drl half-update, card against host CPU from the same agents and
 # draws: the adopted rows' objective values, and the agents' weights (16 Adam
 # steps; 1.1e-5 at most on an H100 80GB HBM3)
@@ -150,6 +169,18 @@ GTDRL_COST_RTOL = 1e-3
 # the techniques ranked by compare_techniques on the card: two priced
 # D = 16 fleets (seeds 0 and 1), one hour each, default configs
 COMPARE_HOURS = 1
+# the scenario engine at D = 16 (fd, priced, cost_sla); hours are cut,
+# never widths: the 11 days of the stress suite, 3 days of the month
+BATCH_HOURS, MONTH_DAYS, MONTH_HOURS, FAULT_HOURS, SWEEP_HOURS = 2, 3, 2, 2, 2
+STACKED_ROWS = 4  # stress-suite rows under a stacked random trace a row
+# run_sweep.py --quick's grid over a priced D = 16 fleet, routed fd
+SWEEP_GRID = {"wan_degradation": (1.0, 3.0),
+              "origin_shift": tuple({"weight": w, "toward": (0,)} for w in (0.0, 0.8))}
+SWEEP_BASE = (scenarios.Scenario("sla_tighten", {"tighten": 0.7}),)
+SWEEP_KILL_AFTER = 2
+# batched rows against the card's scan days of their seeds: the same
+# program on other shapes, so float32 summation order only
+ROW_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -595,15 +626,20 @@ def cpu_reference(path: Path) -> int:
     for case in SCHED_CASES:
         result, ms, infos = traced_day(sched_spec(case), priced_env(case[1], "cpu"))
         out["|".join(map(str, case))] = {"result": result, "ms": ms, "infos": infos}
+    out["scenario"] = scenario_runs(torch.device("cpu"))
+    out["fault_plans"] = {f"{routed}|{policy}": planned_fault_day(routed, policy)
+                          for routed, policy in FAULT_CASES}
     out["seconds"] = time.perf_counter() - T_START
     path.write_text(json.dumps(out))
     return 0
 
 
-def profile_phase(tag: str, fn, **fields) -> None:
+def profile_phase(tag: str, fn, host_ops: bool = True, **fields) -> dict:
     """One call of ``fn`` on the card under torch.profiler: kernels, device
     busy and idle share against the unprofiled wall time, host time a launch,
-    the top kernels and the operators that fill the host's time."""
+    the top kernels and, with ``host_ops``, the operators that fill the
+    host's time (their events take the profiler a minute to sort at ~50,000
+    launches). Returns the kernels and the unprofiled host ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -611,7 +647,8 @@ def profile_phase(tag: str, fn, **fields) -> None:
     fn()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -635,7 +672,8 @@ def profile_phase(tag: str, fn, **fields) -> None:
           top="; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
                         for e in top),
           host_top="; ".join(f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.1f}ms"
-                             for e in host))
+                             for e in host) or nm)
+    return {"kernels": n, "host_ms": plain_ms}
 
 
 def gtdrl_step_phase(dev: torch.device) -> None:
@@ -697,21 +735,29 @@ def gtdrl_step_phase(dev: torch.device) -> None:
 
 def compare_phase(dev: torch.device) -> None:
     """The paper's table on the card: every technique over two priced D = 16
-    fleets, ranked by the day's cost."""
+    fleets on the default (batched) engine, ranked by the day's cost; fd's
+    mean held against the hour loop's."""
     envs = [priced_env(16, dev, seed) for seed in (0, 1)]
     means = {}
     for t in schedulers.TECHNIQUES:
-        sync(dev)
-        t0 = time.perf_counter()
-        r = compare_techniques(envs, (t,), "cost_sla", hours=COMPARE_HOURS, engine="loop")[t]
-        ms = (time.perf_counter() - t0) * 1e3
+        r, ms = timed(dev, lambda: compare_techniques(envs, (t,), "cost_sla",
+                                                      hours=COMPARE_HOURS)[t])
         if not (np.isfinite(r["mean"]) and np.isfinite(r["stderr"])
                 and len(r["curve_mean"]) == COMPARE_HOURS):
             fail(f"compare {t}: {r}")
         means[t] = r["mean"]
-        phase("compare", technique=t, envs=2, num_dcs=16, hours=COMPARE_HOURS,
-              metric="cost_usd", mean=f"{r['mean']:.8g}", stderr=f"{r['stderr']:.4g}",
-              ms=f"{ms:.1f}")
+        fields = {}
+        if t == "fd":
+            loop, loop_ms = timed(dev, lambda: compare_techniques(
+                envs, (t,), "cost_sla", hours=COMPARE_HOURS, engine="loop")[t])
+            diff = abs(r["mean"] - loop["mean"]) / abs(loop["mean"])
+            fields = dict(loop_mean=f"{loop['mean']:.8g}", loop_ms=f"{loop_ms:.1f}",
+                          batched_vs_loop=f"{diff:.3g}", tol=SCHED_OBJECTIVE_RTOL)
+            if not diff <= SCHED_OBJECTIVE_RTOL:
+                fail(f"compare fd: batched mean {r['mean']} against the loop's {loop['mean']}")
+        phase("compare", technique=t, engine="batched", envs=2, num_dcs=16,
+              hours=COMPARE_HOURS, metric="cost_usd", mean=f"{r['mean']:.8g}",
+              stderr=f"{r['stderr']:.4g}", ms=f"{ms:.1f}", **fields)
     phase("compare-rank", order=",".join(sorted(means, key=means.get)))
 
 
@@ -753,13 +799,17 @@ def _sched_phases(dev: torch.device, child, ref_path: Path) -> None:
     # where the time of one fd hour goes on the card (D = 16, routed)
     spec = ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=1)
     env = priced_env(16, dev)
-    profile_phase("sched-profile", lambda: run(spec, env), technique="fd", num_dcs=16,
-                  routed=True, hours=1)
+    single = profile_phase("sched-profile", lambda: run(spec, env), technique="fd",
+                           num_dcs=16, routed=True, hours=1)
+    # the scenario engine: runs beside the CPU process's, held after it
+    scenarios_phase(dev)
+    card_scenario = scenario_runs(dev)
 
     if child.wait(timeout=900) != 0:
         fail(f"the CPU reference process exited {child.returncode}")
     ref = json.loads(ref_path.read_text())
-    phase("sched-cpu-reference", cases=len(SCHED_CASES), seconds=f"{ref['seconds']:.1f}")
+    phase("sched-cpu-reference", cases=len(SCHED_CASES) + len(ref["scenario"]),
+          seconds=f"{ref['seconds']:.1f}")
     for case in SCHED_CASES:
         technique, d, routed, hours = case
         (got, card_ms, infos), want = card[case], ref["|".join(map(str, case))]
@@ -793,6 +843,359 @@ def _sched_phases(dev: torch.device, child, ref_path: Path) -> None:
         if technique == "gt-drl" and (diverged or above_uniform):
             fail(f"sched gt-drl D={d} routed={routed}: {diverged} diverged rounds, "
                  f"{above_uniform} hours above the uniform split")
+    sweep_phase(dev, card_scenario, ref["scenario"])
+    batched_phase(dev, card_scenario, ref["scenario"], single)
+    month_phase(dev, card_scenario, ref["scenario"])
+    faults_phase(dev, card_scenario, ref["scenario"], ref["fault_plans"])
+
+
+# ---------------------------------------------------------------------------
+# the scenario engine: suites, the batched and month engines, realized
+# faults and (resumable) sweeps at D = 16
+# ---------------------------------------------------------------------------
+
+def plain(x):
+    """A result as JSON: numpy arrays as lists, numpy scalars as floats."""
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def timed(device, fn):
+    """(fn(), host ms around it, the device's work included)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def stress_envs(device) -> list:
+    return [env for _, env in scenarios.build_suite("stress", priced_env(16, device))]
+
+
+def batched_spec(routed: bool) -> ExperimentSpec:
+    return ExperimentSpec(technique="fd", objective="cost_sla", routed=routed,
+                          hours=BATCH_HOURS, engine="batched")
+
+
+def crash_trace(env):
+    """DC 1 crashes and DC 0 browns out from hour 0, while fd plans on the
+    healthy fleet."""
+    return fault_mod.compose(
+        fault_mod.dc_crash(env, dc=1, start=0, duration=FAULT_HOURS),
+        fault_mod.brownout(env, dc=0, start=0, duration=FAULT_HOURS, severity=0.5))
+
+
+FAULT_CASES = [(routed, policy) for routed in (False, True) for policy in fault_mod.POLICIES]
+
+
+def fault_spec(routed: bool, policy: str, engine: str = "scan") -> ExperimentSpec:
+    return ExperimentSpec(technique="fd", objective="cost_sla", routed=routed,
+                          hours=FAULT_HOURS, failover=policy, engine=engine)
+
+
+def planned_fault_day(routed: bool, policy: str) -> dict:
+    """The faulted day on the host CPU through the loop engine, keeping fd's
+    plan of each hour for the card to replay through the failover."""
+    env = priced_env(16, "cpu")
+    spec = fault_spec(routed, policy, "loop")
+    _, state0 = experiment._day_inputs(env, spec.technique, spec.objective, spec.seed,
+                                       spec.pretrain, spec.cfg, None, spec.routed)
+    sched = StatefulScheduler(spec.technique, state0, spec.cfg)
+    plans = []
+
+    def solve(gen, ctx, peak):
+        res = sched.solve_epoch(gen, ctx, peak)
+        plans.append(res.fractions.tolist())
+        return res
+
+    return {"plans": plans, "totals": run(spec, env, faults=crash_trace(env),
+                                          solver=solve)["totals"]}
+
+
+def replayed_fault_day(dev, routed: bool, policy: str, plans) -> tuple:
+    """(result, ms): the faulted day on the card from the CPU's plans, so
+    only the failover and the simulator run on the card."""
+    env = priced_env(16, dev)
+
+    def solve(gen, ctx, peak):
+        return game.SolveResult(torch.tensor(plans[ctx.tau], device=dev), {})
+
+    return timed(dev, lambda: run(fault_spec(routed, policy, "loop"), env,
+                                  faults=crash_trace(env), solver=solve))
+
+
+def stacked_case(device):
+    """(spec, envs, trace): the first stress rows, each under its own random
+    day of trouble, on the batched engine."""
+    envs = stress_envs(device)[:STACKED_ROWS]
+    trace = fault_mod.stack_traces([fault_mod.random_trace(envs[0], seed=r, n_events=6)
+                                    for r in range(STACKED_ROWS)])
+    return fault_spec(True, "spill_nearest", "batched"), envs, trace
+
+
+def scenario_runs(device) -> dict:
+    """The scenario engine's runs that the card holds against the host CPU:
+    {case: (JSON result, ms)}."""
+    out = {}
+    for routed in (False, True):
+        envs = stress_envs(device)
+        out[f"batched|{routed}"] = timed(device, lambda: run(batched_spec(routed), envs))
+    out["ga|stress"] = timed(device, lambda: run(batched_spec(False).replace(technique="ga"),
+                                                 stress_envs(device)))
+    out["sweep"] = timed(device, lambda: sweep(
+        sweep_spec(), SWEEP_GRID, base_env=priced_env(16, device),
+        base_scenarios=SWEEP_BASE)["results"]["fd"])
+    month = scenarios.build_month(priced_env(16, device), days=MONTH_DAYS)
+    spec = ExperimentSpec(technique="fd", objective="cost_sla", engine="month",
+                          days=MONTH_DAYS, hours=MONTH_HOURS)
+    out["month"] = timed(device, lambda: run(spec, month))
+    for routed, policy in FAULT_CASES:
+        env = priced_env(16, device)
+        trace = crash_trace(env)
+        out[f"faults|{routed}|{policy}"] = timed(
+            device, lambda: run(fault_spec(routed, policy), env, faults=trace))
+    spec, envs, trace = stacked_case(device)
+    out["faults|stacked"] = timed(device, lambda: run(spec, envs, faults=trace))
+    return {k: (plain(v), ms) for k, (v, ms) in out.items()}
+
+
+def rel_diffs(got: dict, want: dict, keys) -> dict:
+    """max relative difference of each key's (possibly per-row) totals."""
+    out = {}
+    for k in keys:
+        a, b = np.asarray(got[k], float), np.asarray(want[k], float)
+        out[k] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    return out
+
+
+def hold_card_cpu(tag: str, got: dict, want: dict, sum_car: float,
+                  shed_rtol: float = SHED_RTOL, **fields) -> None:
+    """Card totals against the CPU's: the cost (what fd minimizes) at
+    SCHED_OBJECTIVE_RTOL, carbon and SLA cost at SCHED_OTHER_RTOL, the moved
+    mass and the SLA delta at SCHED_OTHER_RTOL of their scale. The violation
+    and the unserved mass within SCHED_VIOLATION_SHARE of Σ CAR (their
+    float32 rounding) or ``shed_rtol`` of their value, whichever is larger
+    (see SHED_RTOL)."""
+    rel = rel_diffs(got, want, ("carbon_kg", "cost_usd", "sla_miss_cost_usd"))
+    share = {}
+    for k in ("violation", "unserved_demand"):
+        if k in want:
+            a, b = np.asarray(got[k], float), np.asarray(want[k], float)
+            share[k] = float(np.max(np.abs(a - b) / np.maximum(
+                SCHED_VIOLATION_SHARE * sum_car, shed_rtol * np.abs(b))))
+    spread = {}
+    for k in ("failover_moved", "degraded_sla_cost_usd"):
+        if k in want:
+            a, b = np.asarray(got[k], float), np.asarray(want[k], float)
+            spread[k] = float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1.0))
+    phase(tag, **fields, cost_rel_diff=f"{rel['cost_usd']:.3g}",
+          max_rel_diff=f"{max(rel.values()):.3g}",
+          **{f"{k}_diff_of_tol": f"{v:.3g}" for k, v in share.items()},
+          **{f"{k}_diff": f"{v:.3g}" for k, v in spread.items()},
+          tol=f"cost {SCHED_OBJECTIVE_RTOL}, others {SCHED_OTHER_RTOL}, violation/unserved "
+              f"max({SCHED_VIOLATION_SHARE} of sum CAR, {shed_rtol} of the value)")
+    if not (rel["cost_usd"] <= SCHED_OBJECTIVE_RTOL and max(rel.values()) <= SCHED_OTHER_RTOL
+            and all(v <= 1.0 for v in share.values())
+            and all(v <= SCHED_OTHER_RTOL for v in spread.values())):
+        fail(f"{tag} {fields}: card vs CPU {rel} {share} {spread}")
+
+
+def scenarios_phase(dev: torch.device) -> None:
+    """Every suite built on the card, field for field the CPU build (the
+    routing suite at D = 4: its source indices assume the 4-DC fleet)."""
+    cpu = torch.device("cpu")
+    for name in scenarios.suite_names():
+        d = 4 if name == "routing" else 16
+        (card, ms) = timed(dev, lambda: scenarios.build_suite(name, priced_env(d, dev)))
+        host = scenarios.build_suite(name, priced_env(d, cpu))
+        for (day, a), (_, b) in zip(card, host):
+            for field in sched_env.EnvParams._fields:
+                x = getattr(a, field)
+                if x.device.type != dev.type or not torch.equal(x.cpu(), getattr(b, field)):
+                    fail(f"scenarios {name}/{day} field {field} differs from the CPU build")
+        phase("scenarios", suite=name, num_dcs=d, days=len(card), fields=len(card[0][1]),
+              equal_to_cpu=True, build_ms=f"{ms:.1f}")
+
+
+def batched_phase(dev: torch.device, card: dict, ref: dict, single: dict) -> None:
+    """fd over the stress suite under one vmap a hour: against the CPU, rows
+    0 and 2 against the card's scan days of their seeds, ms per scenario-day,
+    and a profiled batched hour."""
+    envs = stress_envs(dev)
+    sum_car = float(sum(float(e.car[:, :BATCH_HOURS].double().sum()) for e in envs))
+    for routed in (False, True):
+        (got, ms), (want, cpu_ms) = card[f"batched|{routed}"], ref[f"batched|{routed}"]
+        rows = {}
+        for r in (0, 2):
+            day, day_ms = timed(dev, lambda: run(batched_spec(routed).replace(
+                engine="scan", seed=r), envs[r]))
+            rows[r] = day_ms
+            for k in ("carbon_kg", "cost_usd", "sla_miss_cost_usd"):
+                a = np.asarray(got["per_epoch"][k][r], float)
+                b = np.asarray([e[k] for e in day["per_epoch"]], float)
+                diff = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+                if not diff <= (ROW_RTOL if k == "cost_usd" else SCHED_OTHER_RTOL):
+                    fail(f"sched-batched routed={routed} row {r} {k}: {diff} from its scan day")
+        if not all(np.isfinite(np.asarray(v, float)).all() for v in got["per_epoch"].values()):
+            fail(f"sched-batched routed={routed}: non-finite metrics")
+        hold_card_cpu("sched-batched", got["totals"], want["totals"], sum_car, suite="stress",
+                      days=len(envs), num_dcs=16, routed=routed, hours=BATCH_HOURS,
+                      card_ms=f"{ms:.1f}", ms_per_day=f"{ms / len(envs):.1f}",
+                      ms_per_day_hour=f"{ms / len(envs) / BATCH_HOURS:.1f}",
+                      scan_day_ms=f"{rows[0]:.1f}",
+                      scan_ms_per_hour=f"{rows[0] / BATCH_HOURS:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+                      rows_0_2_vs_scan=f"cost {ROW_RTOL}, others {SCHED_OTHER_RTOL}")
+    # a stochastic technique on the batched engine: every row draws on the
+    # host, so card and CPU see the same draws
+    (got, ms), (want, cpu_ms) = card["ga|stress"], ref["ga|stress"]
+    if not all(np.isfinite(np.asarray(v, float)).all() for v in got["per_epoch"].values()):
+        fail("sched-batched ga: non-finite metrics")
+    cost = np.asarray(want["totals"]["cost_usd"], float)
+    per_row = np.abs(np.asarray(got["totals"]["cost_usd"], float) - cost) / np.abs(cost)
+    hold_card_cpu("sched-batched", got["totals"], want["totals"], sum_car, technique="ga",
+                  suite="stress", days=len(envs), num_dcs=16, routed=False, hours=BATCH_HOURS,
+                  card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+                  rows_cost_within_row_rtol=f"{int(np.sum(per_row <= ROW_RTOL))}/{len(envs)}",
+                  row_cost_max_rel_diff=f"{per_row.max():.3g}")
+    # where the time of one batched hour goes, beside [sched-profile]'s
+    # single-env fd hour (D = 16, routed)
+    spec = batched_spec(True).replace(hours=1)
+    profile_phase("sched-batched", lambda: run(spec, envs), host_ops=False,
+                  what="profile of one batched hour", technique="fd", days=len(envs),
+                  num_dcs=16, routed=True,
+                  single_env_hour_kernels=single["kernels"],
+                  single_env_hour_host_ms=f"{single['host_ms']:.1f}")
+
+
+def month_phase(dev: torch.device, card: dict, ref: dict) -> None:
+    (got, ms), (want, cpu_ms) = card["month"], ref["month"]
+    peaks = np.asarray(got["peak_w"])
+    month = scenarios.build_month(priced_env(16, dev), days=MONTH_DAYS)
+    day0, _ = timed(dev, lambda: run(ExperimentSpec(technique="fd", objective="cost_sla",
+                                                    hours=MONTH_HOURS), month[0][1]))
+    d0 = rel_diffs({k: got["per_day"][k][0] for k in got["per_day"]},
+                   {k: [e[k] for e in day0["per_epoch"]] for k in got["per_day"]},
+                   ("carbon_kg", "cost_usd", "sla_miss_cost_usd"))
+    monotone = bool(np.all(np.diff(peaks, axis=0) >= 0))
+    paid = np.asarray(got["per_day"]["peak_cost_usd"], float).sum(axis=1)[1:] > 0
+    rises = np.any(np.diff(peaks, axis=0) > 0, axis=1)
+    sum_car = float(sum(float(e.car[:, :MONTH_HOURS].double().sum()) for _, e in month))
+    if not (monotone and np.array_equal(paid, rises) and max(d0.values()) <= ROW_RTOL
+            and np.array_equal(peaks[-1], np.asarray(got["final_peak_w"]))):
+        fail(f"sched-month: day 0 vs scan {d0}, monotone {monotone}, paid {paid} rises {rises}")
+    hold_card_cpu("sched-month", got["totals"], want["totals"], sum_car, days=MONTH_DAYS,
+                  hours=MONTH_HOURS, num_dcs=16, card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+                  day0_vs_scan=f"{max(d0.values()):.3g}", peaks_monotone=monotone,
+                  peak_paid_when_raised=True,
+                  final_peak_mw=f"{float(peaks[-1].sum()) / 1e6:.4f}")
+
+
+def faults_phase(dev: torch.device, card: dict, ref: dict, plans: dict) -> None:
+    """Each policy's faulted day on the card against the CPU's: from the
+    card's own plans, then replaying the CPU's plans (the failover alone);
+    then the stacked random traces on the batched engine."""
+    sum_car = float(priced_env(16, "cpu").car[:, :FAULT_HOURS].double().sum())
+    for routed, policy in FAULT_CASES:
+        key = f"faults|{routed}|{policy}"
+        (got, ms), (want, cpu_ms) = card[key], ref[key]
+        t = got["totals"]
+        hold_card_cpu("sched-faults", t, want["totals"], sum_car, routed=routed, policy=policy,
+                      hours=FAULT_HOURS, num_dcs=16, trace="dc_crash(1)+brownout(0)",
+                      unserved=f"{t['unserved_demand']:.6g}",
+                      moved=f"{t['failover_moved']:.6g}",
+                      degraded_sla_usd=f"{t['degraded_sla_cost_usd']:.6g}",
+                      fallback_hours=t["fallback_hours"], card_ms=f"{ms:.1f}",
+                      cpu_ms=f"{cpu_ms:.1f}")
+        if t["fallback_hours"] != 0 or (policy == "drop") != (t["failover_moved"] == 0):
+            fail(f"sched-faults {key}: {t}")
+        cpu_day = plans[f"{routed}|{policy}"]
+        replay, replay_ms = replayed_fault_day(dev, routed, policy, cpu_day["plans"])
+        hold_card_cpu("sched-faults", replay["totals"], cpu_day["totals"], sum_car, shed_rtol=0.0,
+                      routed=routed, policy=policy, plan="the CPU's, replayed",
+                      hours=FAULT_HOURS, num_dcs=16,
+                      unserved=f"{replay['totals']['unserved_demand']:.6g}",
+                      card_ms=f"{replay_ms:.1f}")
+    (got, ms), (want, cpu_ms) = card["faults|stacked"], ref["faults|stacked"]
+    envs = stress_envs("cpu")[:STACKED_ROWS]
+    hold_card_cpu("sched-faults", got["totals"], want["totals"],
+                  float(sum(float(e.car[:, :FAULT_HOURS].double().sum()) for e in envs)),
+                  engine="batched", days=STACKED_ROWS, trace="random_trace a row (stacked)",
+                  routed=True, policy="spill_nearest", hours=FAULT_HOURS, num_dcs=16,
+                  unserved=[f"{v:.4g}" for v in got["totals"]["unserved_demand"]],
+                  card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}")
+
+
+def sweep_spec() -> ExperimentSpec:
+    return ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=SWEEP_HOURS)
+
+
+def sweep_phase(dev: torch.device, card: dict, ref: dict) -> None:
+    """run_sweep.py --quick's grid at D = 16, routed fd, against the CPU's;
+    then the same grid journaled under build/, killed after SWEEP_KILL_AFTER
+    chunks and rerun: the rerun restores them, its totals equal an unkilled
+    journaled sweep's exactly, the batched sweep's as the card's rows do,
+    and the CPU's."""
+    import shutil
+
+    (tot, ms), (want, cpu_ms) = card["sweep"], ref["sweep"]
+    rows = scenarios.build_grid(priced_env(16, "cpu"), SWEEP_GRID, base=SWEEP_BASE)[1]
+    sum_car = float(sum(float(e.car[:, :SWEEP_HOURS].double().sum()) for _, e in rows))
+    if not all(np.isfinite(v).all() and np.shape(v) == (len(rows),)
+               for v in tot["totals"].values()):
+        fail(f"sweep totals {tot['totals']}")
+    grid = dict(grid="wan_degradation(1,3) x origin_shift(0,0.8 toward DC 0)",
+                base="sla_tighten 0.7", num_dcs=16, routed=True, hours=SWEEP_HOURS)
+    hold_card_cpu("sweep", tot["totals"], want["totals"], sum_car, **grid, points=len(rows),
+                  card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+                  sla_miss_usd=[f"{v:.6g}" for v in tot["totals"]["sla_miss_cost_usd"]],
+                  cost_usd=[f"{v:.8g}" for v in tot["totals"]["cost_usd"]])
+    spec = sweep_spec()
+    kw = dict(base_env=priced_env(16, dev), base_scenarios=SWEEP_BASE)
+    journals = ROOT / "build" / "chip_smoke_sweep"
+    shutil.rmtree(journals, ignore_errors=True)
+    whole, whole_ms = timed(dev, lambda: sweep(spec, SWEEP_GRID, resume_dir=str(
+        journals / "whole"), **kw))
+    killed = journals / "killed"
+    t0 = time.perf_counter()
+    try:
+        with fault_mod.inject_kill_after(SWEEP_KILL_AFTER):
+            sweep(spec, SWEEP_GRID, resume_dir=str(killed), **kw)
+        fail("sweep: the injected kill did not stop the sweep")
+    except fault_mod.KilledMidSweep:
+        pass
+    journaled = len(os.listdir(killed))
+    resumed, resumed_ms = timed(dev, lambda: sweep(spec, SWEEP_GRID, resume_dir=str(killed),
+                                                   **kw))
+    kill_ms = (time.perf_counter() - t0) * 1e3 - resumed_ms
+    meta = resumed["resume"]
+    got, whole = resumed["results"]["fd"], whole["results"]["fd"]
+    exact = all(np.array_equal(got[s][k], whole[s][k]) for s in ("totals", "per_epoch")
+                for k in whole[s])
+    vs_batched = rel_diffs(got["totals"], tot["totals"],
+                           ("carbon_kg", "cost_usd", "sla_miss_cost_usd"))
+    hold_card_cpu("sweep", got["totals"], want["totals"], sum_car, **grid,
+                  resume_dir="build/chip_smoke_sweep/killed", chunks=meta["chunks"],
+                  killed_after=SWEEP_KILL_AFTER, journaled_at_kill=journaled,
+                  restored=meta["restored"], computed=meta["computed"], retries=meta["retries"],
+                  equal_to_unkilled_journal=exact,
+                  cost_rel_diff_vs_batched=f"{vs_batched['cost_usd']:.3g}",
+                  max_rel_diff_vs_batched=f"{max(vs_batched.values()):.3g}",
+                  journaled_ms=f"{whole_ms:.1f}", killed_run_ms=f"{kill_ms:.1f}",
+                  resumed_ms=f"{resumed_ms:.1f}")
+    if not (journaled == SWEEP_KILL_AFTER and meta["restored"] == SWEEP_KILL_AFTER
+            and meta["computed"] == meta["chunks"] - SWEEP_KILL_AFTER and exact
+            and vs_batched["cost_usd"] <= ROW_RTOL
+            and max(vs_batched.values()) <= SCHED_OTHER_RTOL):
+        fail(f"sweep resume: {meta}, exact {exact}, vs batched {vs_batched}")
+    shutil.rmtree(journals, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -5,12 +5,15 @@
 
     run(ExperimentSpec(technique="gt-drl", hours=24), build_env(4, seed=0))
 
-``run`` plays one day of the carbon/cost game on the env's device (the card
-unless ``build_env`` was asked for the CPU). The paper's six techniques are
-registered (fd, ga, nash, ddpg, ppo, gt-drl); ``compare_techniques`` ranks
-them on the hour loop; external solvers plug in via ``register_technique``.
+``run`` plays the carbon/cost game on the envs' device (the card unless
+``build_env`` was asked for the CPU): one day (scan, loop), a batch of
+scenario-days under one vmap (batched) or days in a row (month), optionally
+against a realized ``faults.FaultTrace``; ``sweep`` runs severity grids of
+``scenarios``. The paper's six techniques are registered (fd, ga, nash,
+ddpg, ppo, gt-drl); ``compare_techniques`` ranks them; external solvers plug
+in via ``register_technique``.
 """
-from .experiment import ENGINES, ExperimentSpec, run
+from .experiment import ENGINES, ExperimentSpec, run, sweep
 from .game import (GameContext, SolveResult, TechniqueDef, get_technique,
                    register_technique, technique_names,
                    unregister_technique)
@@ -18,7 +21,7 @@ from .schedulers import (TECHNIQUES, compare_techniques, get_scheduler,
                          run_day, run_days_batched, run_month)
 
 __all__ = [
-    "ENGINES", "ExperimentSpec", "run",
+    "ENGINES", "ExperimentSpec", "run", "sweep",
     "GameContext", "SolveResult", "TechniqueDef", "get_technique",
     "register_technique", "technique_names", "unregister_technique",
     "TECHNIQUES", "compare_techniques", "get_scheduler",

@@ -9,6 +9,9 @@ The reference's ``lax.cond`` on the buffer count is a host branch here: the
 count is the step index, which the host knows. The step's draws (the action
 noise and the replay indices, whose range grows with the count) come in as
 ``StepDraws`` (``draw_steps``); nothing is read back from the device.
+``draw_epoch`` makes a solve's initial state and draws together (the batched
+engine stacks one per row, so each row writes its own ring buffer) and
+``solve_drawn`` computes from them.
 """
 from __future__ import annotations
 
@@ -65,9 +68,12 @@ def _opt_cfg(cfg: DDPGConfig) -> AdamWConfig:
     return AdamWConfig(lr=cfg.lr, weight_decay=0.0)
 
 
-def ddpg_init(gen: torch.Generator, ctx: GameContext, cfg: DDPGConfig) -> DDPGState:
+def ddpg_init(gen: torch.Generator, ctx: GameContext, cfg: DDPGConfig,
+              device=None) -> DDPGState:
+    """Fresh networks from ``gen`` and an empty buffer, on ``device`` (the
+    env's by default)."""
     sdim = adim = int(np.prod(ctx.joint_shape()))
-    dev = ctx.env.er.device
+    dev = ctx.env.er.device if device is None else device
     actor = nets.mlp_init(gen, (sdim, *cfg.hidden, adim), device=dev)
     critic = nets.mlp_init(gen, (sdim + adim, *cfg.hidden, 1), out_scale=1.0, device=dev)
     oc = _opt_cfg(cfg)
@@ -112,13 +118,26 @@ def td_update(st: DDPGState, batch_idx: torch.Tensor, cfg: DDPGConfig) -> DDPGSt
                        target_critic=soft(st.target_critic, critic))
 
 
+class EpochDraws(NamedTuple):
+    """What a solve starts from: its initial state and its steps' draws."""
+    state: DDPGState
+    steps: StepDraws
+
+
+def draw_epoch(gen: torch.Generator, ctx: GameContext, cfg: DDPGConfig, device) -> EpochDraws:
+    """The initial state and every draw of ``solve_epoch``, on ``device``."""
+    state = ddpg_init(gen, ctx, cfg, device)
+    return EpochDraws(state, draw_steps(gen, int(np.prod(ctx.joint_shape())), cfg, device))
+
+
+def solve_drawn(draws: EpochDraws, ctx: GameContext, peak_state: torch.Tensor,
+                cfg: DDPGConfig = DDPGConfig()) -> SolveResult:
+    return solve_with(draws.state, draws.steps, ctx, peak_state, cfg)
+
+
 def solve_epoch(gen: torch.Generator, ctx: GameContext, peak_state: torch.Tensor,
                 cfg: DDPGConfig = DDPGConfig()) -> SolveResult:
-    joint = ctx.joint_shape()
-    adim = int(np.prod(joint))
-    state = ddpg_init(gen, ctx, cfg)
-    draws = draw_steps(gen, adim, cfg, ctx.env.er.device)
-    return solve_with(state, draws, ctx, peak_state, cfg)
+    return solve_drawn(draw_epoch(gen, ctx, cfg, ctx.env.er.device), ctx, peak_state, cfg)
 
 
 def solve_with(st: DDPGState, draws: StepDraws, ctx: GameContext, peak_state: torch.Tensor,

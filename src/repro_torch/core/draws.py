@@ -24,9 +24,11 @@ itself (what the tests inject); ``dirichlet`` and ``choice`` accept both.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Tuple
 
 import torch
+
+from ..tree import tree_map
 
 # Marsaglia-Tsang tries a sample. With alpha + 1 >= 1.3 each try is accepted
 # with probability > 0.95, so all four fail about once in 10^6 samples; that
@@ -56,6 +58,12 @@ def to_device(x: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda":
         return x.pin_memory().to(device, non_blocking=True)
     return x.to(device)
+
+
+def stack_draws(trees: List[Any], device) -> Any:
+    """Same-shaped trees of host draws stacked along a new leading axis,
+    each leaf moved to ``device`` once."""
+    return tree_map(lambda *xs: to_device(torch.stack(xs), device), trees[0], *trees[1:])
 
 
 def draw_gammas(gen: torch.Generator, shape: Tuple[int, ...], device) -> Gammas:

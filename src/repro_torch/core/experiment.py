@@ -1,59 +1,88 @@
-"""``ExperimentSpec`` and ``run``: one day of the carbon/cost game, hour by hour.
+"""``ExperimentSpec``, ``run`` and ``sweep``: the one front door to every engine.
 
-The port of ``repro.core.experiment`` for one env. Each hour does what the
-JAX package's ``_day_core`` body does: the registered solver plans, its
-fractions become a feasible allocation (``game.fractions_to_ar``), the hour
-is simulated (``dcsim.env.step_epoch``), and the monthly peak threads into
-the next hour. The metrics stay on the device, and one transfer at the end
-builds the result dict of the JAX package's ``run``.
+The port of ``repro.core.experiment``. Each hour does what the JAX package's
+``_day_core`` body does: the registered solver plans, its fractions become a
+feasible allocation (``game.fractions_to_ar``), the hour is simulated
+(``dcsim.env.step_epoch``), and the monthly peak threads into the next hour.
+The metrics stay on the device, and one transfer at the end builds the
+result dict of the JAX package's ``run``.
 
-The ``scan`` and ``loop`` engines are one plain hour loop here: the JAX
-package compiles the day into one ``lax.scan`` artifact keyed by the spec,
-and jit keys have no torch counterpart, so there is no compile cache. Both
-engines step the registered technique through one
-``schedulers.StatefulScheduler`` from the same initial state, so they give
-the same day exactly. What this port does not run
-yet raises ``NotImplementedError`` naming its ROADMAP.md item; nothing is
-ignored silently.
+- ``"scan"`` and ``"loop"``: one env, one plain hour loop. The JAX package
+  compiles the day into one ``lax.scan`` artifact keyed by the spec; jit
+  keys have no torch counterpart, so there is no compile cache. Both
+  engines step the registered technique through one
+  ``schedulers.StatefulScheduler`` from the same initial state, so they
+  give the same day exactly.
+- ``"batched"``: a fleet of scenario-days. Each hour is ONE
+  ``torch.func.vmap`` over the rows (the JAX package's ``jax.vmap`` of the
+  day), so a batch launches the kernels of one day, each over all rows.
+  Stochastic techniques split their hour into host draws and device
+  compute (``game.TechniqueDef``): every row draws from its own generator,
+  the draws are stacked and moved to the device once, and the compute runs
+  under the vmap.
+- ``"month"``: days in a row, the monthly peak and the solver state
+  threaded from one day into the next.
+- ``sweep``: a grid of scenario-transform parameters expands into one
+  stacked env batch that each technique runs through the batched engine;
+  ``resume_dir`` runs it in journaled chunks that survive a kill.
+
+Realized faults (``repro_torch.faults``): ``run(spec, envs, faults=trace)``
+plans on the unfaulted env and executes each hour against the trace's
+realized env under ``spec.failover``, adding ``unserved_demand``,
+``failover_moved``, ``degraded_sla_cost_usd`` and the finite-guard's
+``fallback_hours`` to the metrics (``guard=True`` adds the guard alone).
 
 Key discipline (the port's own; ``jax.random`` keys have no torch
-counterpart): ``spec.seed`` seeds a ``numpy.random.SeedSequence`` whose two
+counterpart): a seed seeds a ``numpy.random.SeedSequence`` whose two
 children seed two CPU ``torch.Generator``s, one for the solver's initial
 state (gt-drl's pretraining) and one that every hour's solver draws from in
-turn. Drawing on the host makes a card run and a CPU run of one spec see
-the same draws.
+turn. Batched row r draws from the hour generator of ``spec.seeds[r]``, so
+it equals the scan day of that seed from the same initial state; month day
+d draws from that of ``spec.seed + d``. Drawing on the host makes a card
+run and a CPU run of one spec see the same draws.
+
+What this port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item (telemetry taps and run records, A.9; sharding over several
+cards, A.12); nothing is ignored silently.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import hashlib
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import faults as FL
 from ..dcsim import env as E
 from . import game
 from . import schedulers as SCH
-from .draws import generator
+from .draws import generator, stack_draws
 from .game import GameContext, fractions_to_ar
 
 _TOTAL_KEYS = ("carbon_kg", "cost_usd", "sla_miss_cost_usd", "violation")
 
+# degradation metrics: present (and summed into the totals) only on faulted
+# or guarded runs; unfaulted results never carry them
+_FAULT_KEYS = ("unserved_demand", "failover_moved", "degraded_sla_cost_usd",
+               "fallback_hours")
+
 ENGINES = ("scan", "loop", "batched", "month")
 
-# the realized-fault failover policies of ``repro.faults.failover``; the spec
-# validates against them, and a non-default one is not run yet (ROADMAP A.8)
-FAILOVER_POLICIES = ("renormalize", "spill_nearest", "drop")
-DEFAULT_FAILOVER = "renormalize"
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """One evaluation, declaratively: the fields, defaults and validation of
     the JAX package's spec.
 
-    ``engine``: ``"scan"`` and ``"loop"`` run the day (one hour loop here);
-    ``"batched"`` and ``"month"`` are validated but not run yet. ``seed``
-    seeds the solver's generators (the module docstring says how).
+    ``engine``: ``"scan"`` and ``"loop"`` run one env's day (one hour loop
+    here); ``"batched"`` a fleet of scenario-days under one vmap a hour,
+    row r with ``seeds[r]`` (default ``range(n)``); ``"month"`` days in a
+    row from ``seed``, day d's draws from ``seed + d``. ``failover`` is the
+    realized-fault policy, consulted only when ``run`` gets ``faults=``;
+    ``guard=True`` runs the finite-guard on an unfaulted run too.
     """
     technique: str = "fd"
     objective: str = "carbon"
@@ -66,7 +95,7 @@ class ExperimentSpec:
     pretrain: bool = True
     cfg: Any = None                       # solver config (frozen dataclass)
     taps: Optional[Tuple[str, ...]] = None
-    failover: str = DEFAULT_FAILOVER
+    failover: str = FL.DEFAULT_POLICY
     guard: bool = False
     workload: str = "aibench"             # capability layer the envs came from
 
@@ -82,9 +111,9 @@ class ExperimentSpec:
         if self.objective not in E.OBJECTIVES:
             raise ValueError(f"unknown objective {self.objective!r}; "
                              f"known: {E.OBJECTIVES}")
-        if self.failover not in FAILOVER_POLICIES:
+        if self.failover not in FL.POLICIES:
             raise ValueError(f"unknown failover policy {self.failover!r}; "
-                             f"known: {FAILOVER_POLICIES}")
+                             f"known: {FL.POLICIES}")
         if self.seeds is not None and not isinstance(self.seeds, tuple):
             object.__setattr__(self, "seeds", tuple(self.seeds))
         if self.taps is not None and not isinstance(self.taps, tuple):
@@ -94,12 +123,8 @@ class ExperimentSpec:
         return dataclasses.replace(self, **changes)
 
 
-def _unported(spec: ExperimentSpec, shard: bool, record: Any, faults: Any) -> Optional[str]:
+def _unported(spec: ExperimentSpec, record: Any) -> Optional[str]:
     """What of ``spec`` (and ``run``'s options) this port does not run yet."""
-    if spec.engine in ("batched", "month") or shard:
-        return f"engine {spec.engine!r} (shard={shard}): ROADMAP.md A.7"
-    if faults is not None or spec.guard or spec.failover != DEFAULT_FAILOVER:
-        return "realized faults, failover policies and the finite-guard: ROADMAP.md A.8"
     if spec.taps or record:
         return "telemetry taps and run records: ROADMAP.md A.9"
     return None
@@ -122,9 +147,60 @@ def _day_inputs(env, technique, objective, seed, pretrain, cfg, solver_state0=No
     return g_hour, t.init_state(g_init, env, objective, t.resolve_cfg(cfg), routed, pretrain)
 
 
+def _totals_keys(present) -> Tuple[str, ...]:
+    """The invariant ``_TOTAL_KEYS`` plus the degradation metrics the run
+    emitted (faulted or guarded runs only)."""
+    return _TOTAL_KEYS + tuple(k for k in _FAULT_KEYS if k in present)
+
+
+def _trace_stacked(faults) -> bool:
+    """Does this FaultTrace carry a leading env-batch axis (one realized
+    trace per env row)? (n, D, 24) against (D, 24) ``avail_mult``."""
+    return faults is not None and faults.avail_mult.ndim == 3
+
+
+# ---------------------------------------------------------------------------
+# one hour: plan -> (guard) -> feasible allocation -> simulated epoch
+# ---------------------------------------------------------------------------
+
+def _execute(spec: ExperimentSpec, ctx: GameContext, fractions: torch.Tensor,
+             peak: torch.Tensor, trace) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The hour after the plan: the finite-guard (faulted or ``guard=True``),
+    the feasible allocation, and the simulated epoch (on the realized env
+    under a trace)."""
+    guard = spec.guard or trace is not None
+    if guard:
+        fractions, fell_back = FL.guard_fractions(ctx.env, ctx.tau, fractions)
+    ar = fractions_to_ar(ctx, fractions)
+    if trace is None:
+        peak, m = E.step_epoch(ctx.env, peak, ar, ctx.tau)
+    else:
+        peak, m = FL.execute_hour(ctx.env, trace, peak, ar, ctx.tau, spec.failover)
+    if guard:
+        m = {**m, "fallback_hours": fell_back}
+    return peak, m
+
+
+def _hours(spec: ExperimentSpec, env, solver: Callable, gen, peak, trace):
+    """One env's day, hour by hour: (final peak, metric keys, one stacked
+    metric vector per hour, on the device)."""
+    keys, rows = (), []
+    for tau in range(spec.hours):
+        ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
+        res = solver(gen, ctx, peak)
+        peak, m = _execute(spec, ctx, res.fractions, peak, trace)
+        keys = tuple(m)
+        rows.append(torch.stack(list(m.values())))
+    return peak, keys, rows
+
+
+# ---------------------------------------------------------------------------
+# the façade
+# ---------------------------------------------------------------------------
+
 def run(
     spec: ExperimentSpec,
-    env: E.EnvParams,
+    envs,
     *,
     peak_state0: Optional[torch.Tensor] = None,
     solver_state0: Any = None,
@@ -133,49 +209,72 @@ def run(
     record: Any = None,
     faults: Any = None,
 ) -> Dict[str, Any]:
-    """Run one day of ``spec`` on ``env``, on the env's device.
+    """Run one experiment on the envs' device. ``envs`` is one EnvParams for
+    the scan/loop engines, one or many (a list or a stacked EnvParams) for
+    batched, and one (tiled to ``spec.days``, 30 by default), a list or a
+    stacked EnvParams of per-day envs for month.
 
-    ``peak_state0`` is the monthly peak (W) the day starts from (zeros by
-    default). ``solver_state0`` injects the solver's initial carry (scan
-    only); ``solver`` injects a prebuilt ``(gen, ctx, peak) -> SolveResult``
-    closure (loop only). ``shard``, ``record`` and ``faults`` are the JAX
-    package's options; the port does not run them yet and raises.
+    ``peak_state0`` is the monthly peak (W) the run starts from (zeros by
+    default; the batched engine always starts from zeros).
+    ``solver_state0`` injects the solver's initial carry (deployed gt-drl
+    agents; not on the loop engine); ``solver`` injects a prebuilt
+    ``(gen, ctx, peak) -> SolveResult`` closure (loop only). ``shard=True``
+    (batched only) runs the same batched program on the one visible card;
+    several cards raise (ROADMAP.md A.12). ``faults`` (a ``FaultTrace``,
+    or on the batched engine a stacked one, a row each) executes every hour
+    against the realized env under ``spec.failover``. ``record`` is not
+    ported yet (A.9).
 
-    Returns ``{"per_epoch": [row per hour], "totals": {...}, "technique",
-    "objective"}``, each row the hour's ``step_epoch`` metrics as floats plus
-    ``"tau"``, and the totals the hourly sums of ``carbon_kg``, ``cost_usd``,
-    ``sla_miss_cost_usd`` and ``violation``.
+    scan/loop return ``{"per_epoch": [row per hour], "totals": {...},
+    "technique", "objective"}``, each row the hour's metrics as floats plus
+    ``"tau"``. batched returns ``{"totals": {k: (n,)}, "per_epoch": {k:
+    (n, hours)}, "seeds", ...}`` as numpy arrays; month ``{"per_day": {k:
+    (days, hours)}, "day_totals", "totals", "peak_w": (days, D),
+    "final_peak_w", "days", ...}``.
     """
     game.get_technique(spec.technique)  # fails with the known names
-    missing = _unported(spec, shard, record, faults)
+    missing = _unported(spec, record)
     if missing:
         raise NotImplementedError(f"the port does not run {missing}")
+    if shard and spec.engine != "batched":
+        raise ValueError(f"shard=True needs engine='batched', got {spec.engine!r}")
     if solver is not None and spec.engine != "loop":
         raise ValueError("a prebuilt solver closure needs engine='loop', "
                          f"got {spec.engine!r}")
+    if peak_state0 is not None and spec.engine == "batched":
+        raise ValueError("the batched engine starts every scenario-day from "
+                         "a zero peak; peak_state0 is not supported")
     if solver_state0 is not None and spec.engine == "loop":
-        raise ValueError("the loop engine derives solver state from the "
-                         "seed or a prebuilt solver=; solver_state0 is scan-only")
+        raise ValueError("the loop engine derives solver state from the seed or a "
+                         "prebuilt solver=; solver_state0 is scan-only among the day "
+                         "engines (batched and month take it too)")
+    if faults is not None and spec.engine == "month":
+        raise ValueError("the month engine does not take realized faults "
+                         "(a FaultTrace describes one day); run faulted "
+                         "days through scan/loop/batched")
+    if _trace_stacked(faults) and spec.engine != "batched":
+        raise ValueError("a stacked (per-point) FaultTrace needs engine='batched', "
+                         f"got {spec.engine!r}; the scan/loop engines evaluate one "
+                         "env against one trace")
+    if spec.engine in ("scan", "loop"):
+        return _run_day(spec, envs, peak_state0, solver_state0, solver, faults)
+    if spec.engine == "batched":
+        return _run_batched(spec, envs, solver_state0, shard, faults)
+    return _run_month(spec, envs, peak_state0, solver_state0)
 
-    device = env.er.device
+
+def _run_day(spec, env, peak_state0, solver_state0, solver, faults):
+    """The scan and loop engines: both step the registered technique from
+    the same carry, or the prebuilt ``solver`` (loop)."""
     if solver is None:
-        # both engines step the registered technique from the same carry
         gen, state0 = _day_inputs(env, spec.technique, spec.objective, spec.seed,
                                   spec.pretrain, spec.cfg, solver_state0, spec.routed)
         solver = SCH.StatefulScheduler(spec.technique, state0, spec.cfg).solve_epoch
     else:
         _, gen = _generators(spec.seed)
-
     peak = (peak_state0 if peak_state0 is not None
-            else torch.zeros((E.num_dcs(env),), dtype=env.er.dtype, device=device))
-    keys, rows = (), []
-    for tau in range(spec.hours):
-        ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
-        res = solver(gen, ctx, peak)
-        ar = fractions_to_ar(ctx, res.fractions)
-        peak, m = E.step_epoch(env, peak, ar, tau)
-        keys = tuple(m)
-        rows.append(torch.stack(list(m.values())))
+            else torch.zeros((E.num_dcs(env),), dtype=env.er.dtype, device=env.er.device))
+    _, keys, rows = _hours(spec, env, solver, gen, peak, faults)
     return _format_day(keys, rows, spec.technique, spec.objective)
 
 
@@ -184,9 +283,284 @@ def _format_day(keys, rows, technique: str, objective: str) -> Dict[str, Any]:
     transfer to the host."""
     host = torch.stack(rows).cpu().double().tolist() if rows else []
     per_epoch = [{**dict(zip(keys, vals)), "tau": t} for t, vals in enumerate(host)]
-    totals = {k: 0.0 for k in _TOTAL_KEYS}
+    totals = {k: 0.0 for k in _totals_keys(keys)}
     for row in per_epoch:
         for k in totals:
             totals[k] += row[k]
     return {"per_epoch": per_epoch, "totals": totals, "technique": technique,
             "objective": objective}
+
+
+def _rows_of(envs) -> Tuple[E.EnvParams, E.EnvParams, int]:
+    """(stacked envs, the first env, n) from one env, a list of envs (or of
+    ``(name, env)`` rows) or an already stacked EnvParams."""
+    if isinstance(envs, E.EnvParams) and envs.er.ndim == 2:
+        envs = [envs]
+    if isinstance(envs, E.EnvParams):
+        return envs, E.EnvParams(*(x[0] for x in envs)), int(envs.er.shape[0])
+    envs = [e if isinstance(e, E.EnvParams) else e[1] for e in envs]
+    return E.stack_envs(envs), envs[0], len(envs)
+
+
+def _by_key(keys, stacked: torch.Tensor) -> Dict[str, np.ndarray]:
+    """(n, hours, K) metrics on the device -> {key: (n, hours) float32}, by
+    one transfer."""
+    host = stacked.cpu().numpy()
+    return {k: np.ascontiguousarray(host[:, :, j]) for j, k in enumerate(keys)}
+
+
+def _check_shard(env0: E.EnvParams) -> None:
+    """``shard=True`` runs the batched program as it is on one device."""
+    dev = env0.er.device
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if count > 1:
+        raise NotImplementedError(
+            f"the port does not shard the batched engine over {count} cards: "
+            "ROADMAP.md A.12")
+
+
+def _run_batched(spec, envs, solver_state0, shard, faults=None):
+    env_b, env0, n = _rows_of(envs)
+    seeds = list(range(n)) if spec.seeds is None else list(spec.seeds)
+    if len(seeds) != n:
+        raise ValueError(f"{len(seeds)} seeds for {n} scenario-days")
+    if shard:
+        _check_shard(env0)
+    stacked = _trace_stacked(faults)  # per-row traces vs one shared trace
+    if stacked and int(faults.avail_mult.shape[0]) != n:
+        raise ValueError(f"stacked FaultTrace has {int(faults.avail_mult.shape[0])} rows "
+                         f"for {n} scenario-days")
+
+    # deploy once, on the first seed's initial-state generator; every row
+    # then draws from its own seed's per-hour generator
+    _, state0 = _day_inputs(env0, spec.technique, spec.objective, seeds[0], spec.pretrain,
+                            spec.cfg, solver_state0, spec.routed)
+    gens = [_generators(s)[1] for s in seeds]
+    t = game.get_technique(spec.technique)
+    cfg = t.resolve_cfg(spec.cfg)
+    draw, compute = t.split()
+    dev = env0.er.device
+    peak = torch.zeros((n, E.num_dcs(env0)), dtype=env0.er.dtype, device=dev)
+    state, state_dim = state0, None  # the deployed state is shared until hour 0
+    keys, rows = [], []
+    for tau in range(spec.hours):
+        draws = None
+        if draw is not None:
+            ctx0 = GameContext(env=env0, tau=tau, objective=spec.objective, routed=spec.routed)
+            draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in gens], dev)
+
+        def hour(env, peak, state, draws, trace, tau=tau):
+            ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
+            state, res = compute(draws, state, ctx, peak, cfg)
+            peak, m = _execute(spec, ctx, res.fractions, peak, trace)
+            keys[:] = list(m)
+            return peak, state, torch.stack(list(m.values()))
+
+        in_dims = (0, 0, state_dim, None if draws is None else 0, 0 if stacked else None)
+        peak, state, row = torch.func.vmap(hour, in_dims=in_dims)(env_b, peak, state, draws,
+                                                                  faults)
+        state_dim = 0
+        rows.append(row)
+    out = _by_key(keys, torch.stack(rows, dim=1))  # (n, hours) each
+    totals = {k: out[k].sum(axis=1) for k in _totals_keys(out)}
+    return {"totals": totals, "per_epoch": out, "technique": spec.technique,
+            "objective": spec.objective, "seeds": seeds}
+
+
+def _run_month(spec, envs, peak_state0, solver_state0):
+    days = spec.days
+    if isinstance(envs, E.EnvParams) and envs.er.ndim == 2:
+        envs = E.tile_env(envs, 30 if days is None else int(days))
+    env_days, env0, n = _rows_of(envs)
+    if days is not None and int(days) != n:
+        raise ValueError(f"days={days} but {n} per-day envs were given")
+
+    _, state0 = _day_inputs(env0, spec.technique, spec.objective, spec.seed, spec.pretrain,
+                            spec.cfg, solver_state0, spec.routed)
+    sched = SCH.StatefulScheduler(spec.technique, state0, spec.cfg)
+    peak = (peak_state0 if peak_state0 is not None
+            else torch.zeros((E.num_dcs(env0),), dtype=env0.er.dtype, device=env0.er.device))
+    peaks, day_rows = [], []
+    for d in range(n):
+        env = E.EnvParams(*(x[d] for x in env_days))
+        _, gen = _generators(spec.seed + d)
+        peak, keys, rows = _hours(spec, env, sched.solve_epoch, gen, peak, None)
+        day_rows.append(torch.stack(rows))
+        peaks.append(peak)
+    per_day = _by_key(keys, torch.stack(day_rows))  # (days, hours) each
+    day_totals = {k: per_day[k].sum(axis=1) for k in _TOTAL_KEYS}
+    return {"per_day": per_day, "day_totals": day_totals,
+            "totals": {k: float(day_totals[k].sum()) for k in _TOTAL_KEYS},
+            "peak_w": torch.stack(peaks).cpu().numpy(), "final_peak_w": peak.cpu().numpy(),
+            "days": n, "technique": spec.technique, "objective": spec.objective}
+
+
+# ---------------------------------------------------------------------------
+# severity sweeps: parameter grids -> stacked envs -> per-point curves
+# ---------------------------------------------------------------------------
+
+def sweep(
+    spec: ExperimentSpec,
+    grid: Mapping[str, Sequence[Any]],
+    *,
+    base_env: Optional[E.EnvParams] = None,
+    techniques: Optional[Sequence[str]] = None,
+    base_scenarios: Sequence[Any] = (),
+    cfg_overrides: Optional[Mapping[str, Any]] = None,
+    shard: bool = False,
+    record: Any = None,
+    faults: Any = None,
+    resume_dir: Optional[str] = None,
+    chunk_points: Optional[int] = None,
+    max_retries: int = 2,
+    backoff_s: float = 0.25,
+    point_timeout_s: Optional[float] = None,
+) -> Dict[str, Any]:
+    """Severity sweep: the cartesian ``grid`` of scenario-transform
+    parameters expands into one stacked env batch, and every technique runs
+    through the batched engine over all grid points.
+
+    ``grid`` maps a registered transform name to a sequence of points — a
+    params dict, or a bare scalar for the transform's declared severity knob.
+    ``base_scenarios`` apply to ``base_env`` (``build_env(4, seed=0)`` on the
+    card by default) before every grid point. Every point runs with
+    ``spec.seed``'s generators, so severity is the only variable along a
+    curve. ``cfg_overrides`` maps technique -> solver config; ``spec.cfg``
+    covers ``spec.technique``. ``faults`` executes every point under
+    ``spec.failover``: one ``FaultTrace`` shared by every point, a sequence
+    of traces (one per point) or an already stacked trace.
+
+    ``resume_dir`` runs the grid in chunks of ``chunk_points`` points
+    (default 1) per technique, each completed chunk journaled atomically
+    under ``resume_dir`` (``faults.SweepJournal``); a rerun after a kill
+    computes only the missing chunks. A raising chunk is retried up to
+    ``max_retries`` times with backoff ``backoff_s * 2**k``;
+    ``point_timeout_s`` bounds each chunk's wall time. The result then has
+    a ``"resume"`` block (chunks restored and computed, retries,
+    stragglers). ``record`` is not ported yet (ROADMAP.md A.9).
+
+    Returns ``{"points", "labels", "results": {technique: {"totals": {k:
+    (P,)}, "per_epoch": {k: (P, hours)}}}, ...}``.
+    """
+    from .. import scenarios as S
+
+    if record:
+        raise NotImplementedError("the port does not run run records: ROADMAP.md A.9")
+    base_env = base_env if base_env is not None else E.build_env(4, seed=0)
+    points, rows = S.build_grid(base_env, grid, base=base_scenarios)
+    labels = [lbl for lbl, _ in rows]
+    envs = [env for _, env in rows]
+    n = len(rows)
+    techniques = tuple(techniques) if techniques else (spec.technique,)
+    overrides = dict(cfg_overrides or {})
+
+    if faults is not None and not isinstance(faults, FL.FaultTrace):
+        faults = FL.stack_traces(faults)  # sequence: one trace per point
+    if _trace_stacked(faults) and int(faults.avail_mult.shape[0]) != n:
+        raise ValueError(f"per-point faults: {int(faults.avail_mult.shape[0])} traces "
+                         f"for {n} grid points")
+
+    def point_spec(t, n_pts):
+        cfg = overrides.get(t, spec.cfg if t == spec.technique else None)
+        return spec.replace(technique=t, cfg=cfg, engine="batched", seeds=(spec.seed,) * n_pts)
+
+    if resume_dir is not None:
+        results, resume_meta = _sweep_resumable(
+            point_spec, envs, techniques, labels, faults=faults, shard=shard,
+            resume_dir=resume_dir, chunk_points=chunk_points or 1, max_retries=max_retries,
+            backoff_s=backoff_s, point_timeout_s=point_timeout_s)
+    else:
+        resume_meta = None
+        env_b = E.stack_envs(envs)
+        results = {}
+        for t in techniques:
+            res = _run_batched(point_spec(t, n), env_b, None, shard, faults)
+            results[t] = {"totals": res["totals"], "per_epoch": res["per_epoch"]}
+    out = {"grid": {name: list(pts) for name, pts in grid.items()},
+           "points": points, "labels": labels, "results": results,
+           "objective": spec.objective, "hours": spec.hours,
+           "routed": spec.routed, "techniques": list(techniques)}
+    if resume_meta is not None:
+        out["resume"] = resume_meta
+    return out
+
+
+def _sweep_resumable(point_spec, envs, techniques, labels, *, faults, shard, resume_dir,
+                     chunk_points, max_retries, backoff_s, point_timeout_s):
+    """The journaled chunk-at-a-time sweep (see ``sweep``'s docstring).
+
+    Plan: techniques in order, each technique's grid points in chunks of
+    ``chunk_points``; the global chunk index is the journal step. Chunks
+    run strictly in order, so the journal is always a prefix of the plan
+    and ``SweepJournal.next_step()`` is the resume frontier. The supervisor
+    is ``distributed.fault_tolerance.run_with_retries``;
+    ``HeartbeatMonitor`` turns per-chunk wall times into straggler reports.
+    """
+    from ..distributed import fault_tolerance as FT
+
+    n = len(envs)
+    chunks = [(start, min(start + chunk_points, n)) for start in range(0, n, chunk_points)]
+    plan = [(t, start, end) for t in techniques for start, end in chunks]
+    sig_spec = point_spec(techniques[0], 1)
+    stacked = _trace_stacked(faults)
+    sig = hashlib.sha256(repr((
+        tuple(labels), tuple(techniques), chunk_points,
+        sig_spec.objective, sig_spec.hours, sig_spec.routed,
+        sig_spec.failover, sig_spec.guard, sig_spec.seed,
+        sig_spec.workload, faults is not None, stacked,
+    )).encode()).hexdigest()[:16]
+    journal = FL.SweepJournal(resume_dir, sig)
+    monitor = FT.HeartbeatMonitor(num_workers=len(plan), window=max(len(plan), 1))
+    device = envs[0].er.device
+
+    restored_steps = [s for s in journal.completed_steps() if s < len(plan)]
+    computed_steps: List[int] = []
+    pending: Dict[int, Dict[str, Any]] = {}
+
+    def step_fn(step):
+        FL.check_kill_switch()
+        t, start, end = plan[step]
+        pspec = point_spec(t, end - start)
+        env_b = E.stack_envs(envs[start:end])
+        chunk_faults = (FL.FaultTrace(*(x[start:end] for x in faults)) if stacked
+                        else faults)
+        t0 = time.perf_counter()
+        res = FL.call_with_timeout(
+            lambda: _run_batched(pspec, env_b, None, shard, chunk_faults),
+            point_timeout_s, label=f"chunk {step} ({t}[{start}:{end}])")
+        monitor.record(step, time.perf_counter() - t0)
+        pending[step] = {"totals": dict(res["totals"]), "per_epoch": dict(res["per_epoch"])}
+        computed_steps.append(step)
+
+    def save_fn(step_after):
+        step = step_after - 1
+        if step in pending:  # journal the chunk that just completed
+            if device.type == "cuda":
+                # a chunk abandoned by its timeout may still have work queued
+                torch.cuda.synchronize(device)
+            t, start, end = plan[step]
+            journal.mark(step, pending.pop(step),
+                         meta={"technique": t, "start": start, "end": end})
+
+    events = FT.run_with_retries(
+        step_fn, total_steps=len(plan), save_every=1, save_fn=save_fn,
+        restore_fn=journal.next_step,
+        policy=FT.FailurePolicy(max_restarts=max_retries, elastic=False),
+        retry_on=(Exception,), backoff_s=backoff_s)
+
+    results: Dict[str, Dict[str, Any]] = {}
+    for step, (t, start, end) in enumerate(plan):
+        part = journal.load(step)
+        node = results.setdefault(t, {"totals": {}, "per_epoch": {}})
+        for sect in ("totals", "per_epoch"):
+            for k, v in part[sect].items():
+                node[sect].setdefault(k, []).append(np.asarray(v))
+    for t in results:
+        for sect in ("totals", "per_epoch"):
+            results[t][sect] = {k: np.concatenate(v) for k, v in results[t][sect].items()}
+    meta = {"journal": resume_dir, "signature": sig, "chunks": len(plan),
+            "chunk_points": chunk_points, "restored": len(restored_steps),
+            "computed": len(computed_steps), "retries": events["restarts"],
+            "stragglers": [{"chunk": s.worker, "ratio": float(s.ratio)}
+                           for s in monitor.stragglers()]}
+    return results, meta

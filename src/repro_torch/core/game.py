@@ -11,8 +11,9 @@ Routed games (``GameContext.routed``): player i's strategy grows to an
 is the (S, I, D) routing tensor. The player axis is always ``-2`` and the DC
 simplex rows ``-1``, so the same solver code drives both games.
 
-Gradients come from ``torch.autograd.grad``; a player's row is written out of
-place (``replace_player``) so that autograd sees the write.
+Gradients come from ``torch.func.grad_and_value`` (``grad_of``), so that the
+solvers also run under ``torch.func.vmap``; a player's row is written out of
+place (``replace_player``) so that the transform sees the write.
 """
 from __future__ import annotations
 
@@ -114,12 +115,11 @@ def player_objective(
 
 def grad_of(fn: Callable[[torch.Tensor], torch.Tensor],
             x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(fn(x), d fn / d x), from a fresh leaf, so no graph outlives the call."""
-    with torch.enable_grad():
-        leaf = x.detach().requires_grad_(True)
-        value = fn(leaf)
-        (g,) = torch.autograd.grad(value, leaf)
-    return value.detach(), g
+    """(fn(x), d fn / d x) by ``torch.func.grad_and_value``: no graph
+    outlives the call, and it runs under ``torch.func.vmap`` (the batched
+    engine's rows)."""
+    g, value = torch.func.grad_and_value(fn)(x)
+    return value, g
 
 
 def nash_residual(
@@ -175,16 +175,35 @@ class TechniqueDef(NamedTuple):
     ``state`` threads the solver carry, ``()`` for stateless solvers);
     ``init_state(gen, env, objective, cfg, routed, pretrain)`` builds the
     initial carry.
+
+    The batched engine runs the hour of every row under one
+    ``torch.func.vmap``, where no generator can draw. A technique that draws
+    splits its step: ``draw(gen, ctx, cfg, device)`` makes every draw of one
+    hour (a tree of tensors), and ``compute(draws, state, ctx, peak_state,
+    cfg) -> (state, SolveResult)`` is the step from them. Without the split,
+    the step runs there with ``gen=None`` (fd and nash draw nothing).
     """
     name: str
     step: Callable[..., Tuple[Any, SolveResult]]
     default_cfg: Any = None
     init_state: Callable[..., Any] = _stateless_init
     stateful: bool = False
+    draw: Optional[Callable[..., Any]] = None
+    compute: Optional[Callable[..., Tuple[Any, SolveResult]]] = None
 
     def resolve_cfg(self, cfg: Any) -> Any:
         """``cfg`` if given, else the registered default."""
         return cfg if cfg is not None else self.default_cfg
+
+    def split(self) -> Tuple[Optional[Callable], Callable]:
+        """(draw or None, compute): the step as the batched engine runs it."""
+        if self.compute is not None:
+            return self.draw, self.compute
+        step = self.step
+
+        def compute(draws, state, ctx, peak_state, cfg):
+            return step(None, state, ctx, peak_state, cfg)
+        return None, compute
 
 
 _TECHNIQUES: Dict[str, TechniqueDef] = {}
@@ -199,23 +218,36 @@ def register_technique(
     init_state: Optional[Callable] = None,
     stateful: bool = False,
     overwrite: bool = False,
+    draw: Optional[Callable] = None,
+    compute: Optional[Callable] = None,
 ) -> TechniqueDef:
     """Register a technique so ``ExperimentSpec`` can drive it by name.
 
     Pass exactly one of ``solve_epoch(gen, ctx, peak_state, cfg=...) ->
     SolveResult`` (a stateless solver) or ``step(gen, state, ctx, peak_state,
     cfg) -> (state, SolveResult)`` with ``init_state`` and ``stateful=True``.
+    ``draw`` and ``compute`` split the step for the batched engine
+    (``TechniqueDef``); ``compute`` takes the form of the step given:
+    ``compute(draws, ctx, peak_state, cfg)`` beside ``solve_epoch``.
     """
     if (solve_epoch is None) == (step is None):
         raise ValueError("pass exactly one of solve_epoch= or step=")
+    if (draw is None) != (compute is None):
+        raise ValueError("pass both draw= and compute=, or neither")
     if solve_epoch is not None:
         fn = solve_epoch
 
         def step(gen, state, ctx, peak_state, cfg):
             return state, fn(gen, ctx, peak_state, cfg=cfg)
+        if compute is not None:
+            solve_drawn = compute
+
+            def compute(draws, state, ctx, peak_state, cfg):
+                return state, solve_drawn(draws, ctx, peak_state, cfg)
     if name in _TECHNIQUES and not overwrite:
         raise KeyError(f"technique {name!r} already registered (overwrite=True rebinds)")
-    t = TechniqueDef(name, step, default_cfg, init_state or _stateless_init, stateful)
+    t = TechniqueDef(name, step, default_cfg, init_state or _stateless_init, stateful, draw,
+                     compute)
     _TECHNIQUES[name] = t
     return t
 

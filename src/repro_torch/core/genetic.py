@@ -9,7 +9,9 @@ Each generation's draws come in as ``GenerationDraws`` (``draw_generation``).
 The parents' choice depends on the fitness ranks and the mutation on the
 child, both on the device, so the host draws their uniforms and Gamma tries
 and the device finishes them (``core.draws``); the tests inject the drawn
-values instead.
+values instead. ``draw_epoch`` draws a whole solve at once (the batched
+engine stacks one per row), ``solve_drawn`` computes from it, and
+``solve_epoch`` is the two in turn.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import torch
 from torch.func import vmap
 
-from .draws import choice, dirichlet, draw_gammas, to_device
+from ..tree import tree_map
+from .draws import choice, dirichlet, draw_gammas, stack_draws, to_device
 from .game import GameContext, SolveResult, cloud_objective, uniform_fractions
 
 
@@ -39,8 +42,10 @@ class GenerationDraws(NamedTuple):
     do_mut: torch.Tensor   # (I, 1) uniforms: a player mutates below mutate_prob
 
 
-def draw_generation(gen: torch.Generator, ctx: GameContext, cfg: GAConfig) -> GenerationDraws:
-    dev = ctx.env.er.device
+def draw_generation(gen: torch.Generator, ctx: GameContext, cfg: GAConfig,
+                    device=None) -> GenerationDraws:
+    """One generation's draws, on ``device`` (the env's by default)."""
+    dev = ctx.env.er.device if device is None else device
     i_n = ctx.num_players()
     pa, pb, mix = (torch.rand(shape, generator=gen) for shape in ((1,), (1,), (i_n, 1)))
     mut = draw_gammas(gen, ctx.joint_shape(), dev)
@@ -75,19 +80,39 @@ def generation(pop: torch.Tensor, fit: torch.Tensor, draws: GenerationDraws, obj
     return pop, fit
 
 
-def solve_epoch(gen: torch.Generator, ctx: GameContext, peak_state: torch.Tensor,
+class EpochDraws(NamedTuple):
+    """The draws of one solve."""
+    pop: torch.Tensor        # (population - 1, *joint) Dirichlet(1) members
+    gens: GenerationDraws    # each field with a leading (generations,) axis
+
+
+def draw_epoch(gen: torch.Generator, ctx: GameContext, cfg: GAConfig, device) -> EpochDraws:
+    """Every draw of a solve, in order, on ``device``: the initial population
+    beside the uniform split, then each generation's."""
+    pop = torch._sample_dirichlet(torch.ones((cfg.population,) + ctx.joint_shape()),
+                                  generator=gen)
+    pop = to_device(pop[1:], device)
+    gens = [draw_generation(gen, ctx, cfg, "cpu") for _ in range(cfg.generations)]
+    return EpochDraws(pop, stack_draws(gens, device))
+
+
+def solve_drawn(draws: EpochDraws, ctx: GameContext, peak_state: torch.Tensor,
                 cfg: GAConfig = GAConfig()) -> SolveResult:
+    """The solve from ``draw_epoch``'s draws."""
     def obj(f):
         return cloud_objective(ctx, f, peak_state)
 
     f0 = uniform_fractions(ctx)
-    pop = torch._sample_dirichlet(torch.ones((cfg.population,) + ctx.joint_shape()),
-                                  generator=gen)
-    pop = torch.cat([f0[None], to_device(pop[1:], f0.device)])  # seeded with the uniform split
+    pop = torch.cat([f0[None], draws.pop])  # seeded with the uniform split
     fit = vmap(obj)(pop)
     hist = []
-    for _ in range(cfg.generations):
-        pop, fit = generation(pop, fit, draw_generation(gen, ctx, cfg), obj, cfg)
+    for g in range(cfg.generations):
+        pop, fit = generation(pop, fit, tree_map(lambda x: x[g], draws.gens), obj, cfg)
         hist.append(torch.min(fit))
     best = pop.index_select(0, torch.argmin(fit)[None])[0]
     return SolveResult(best, {"history": torch.stack(hist), "best": torch.min(fit)})
+
+
+def solve_epoch(gen: torch.Generator, ctx: GameContext, peak_state: torch.Tensor,
+                cfg: GAConfig = GAConfig()) -> SolveResult:
+    return solve_drawn(draw_epoch(gen, ctx, cfg, ctx.env.er.device), ctx, peak_state, cfg)

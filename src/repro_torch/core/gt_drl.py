@@ -16,8 +16,11 @@ may vary along the batch, as the reference's traced index does under
 ``jax.vmap``.
 
 Random draws come in as ``PlayerDraws`` (``draw_players``); see
-``core.draws``. Routed games grow each player's strategy from a (D,) row to an
-(S, D) routing matrix; ``state_mode="env"`` appends per-DC context features.
+``core.draws``. ``draw_epoch`` draws a whole hour's at once (the batched
+engine stacks one per row), ``solve_drawn`` computes from them, and
+``solve_epoch`` is the two in turn.
+Routed games grow each player's strategy from a (D,) row to an (S, D)
+routing matrix; ``state_mode="env"`` appends per-DC context features.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ..dcsim import env as E
 from ..dcsim import ties
 from ..tree import tree_map
 from . import networks as nets
-from .draws import dirichlet, draw_gammas, generator, to_device
+from .draws import dirichlet, draw_gammas, generator, stack_draws, to_device
 from .game import GameContext, SolveResult, player_rewards, uniform_fractions
 from .ppo import AgentState, PPOConfig, agent_init, average_agents, draw_eps, ppo_improve
 
@@ -223,11 +226,20 @@ def _run_players(draws, agents, idx, env, tau, objective, peak_state, joint, cfg
         polish_steps=cfg.polish_steps, polish_lr=cfg.polish_lr)
 
 
-def draw_half(gen: torch.Generator, ctx: GameContext, cfg: GTDRLConfig) -> PlayerDraws:
+def draw_half(gen: torch.Generator, ctx: GameContext, cfg: GTDRLConfig,
+              device=None) -> PlayerDraws:
     """The draws of one half-update, for every player (the gather mode
-    takes its half's), so that both modes see the same draws."""
+    takes its half's), so that both modes see the same draws. On ``device``,
+    the env's by default."""
     return draw_players(gen, ctx.num_players(), _row_shape(ctx.env, ctx.is_routed()),
-                        cfg.ppo, ctx.env.er.device)
+                        cfg.ppo, ctx.env.er.device if device is None else device)
+
+
+def draw_epoch(gen: torch.Generator, ctx: GameContext, cfg: GTDRLConfig,
+               device) -> PlayerDraws:
+    """The draws of an epoch's 2 x rounds half-updates, in order,
+    each field with a leading half-update axis, on ``device``."""
+    return stack_draws([draw_half(gen, ctx, cfg, "cpu") for _ in range(2 * cfg.rounds)], device)
 
 
 def half_update(agents, joint, draws: PlayerDraws, parity: int, ctx: GameContext,
@@ -263,15 +275,11 @@ def half_update(agents, joint, draws: PlayerDraws, parity: int, ctx: GameContext
     return agents, torch.where(mask, to_joint(rows), joint)
 
 
-def solve_epoch(
-    gen: torch.Generator,
-    agents: AgentState,
-    ctx: GameContext,
-    peak_state: torch.Tensor,
-    cfg: GTDRLConfig,
-    init_fracs: Optional[torch.Tensor] = None,
-) -> Tuple[AgentState, SolveResult]:
-    """Run the game for one epoch: rounds × (red half, black half).
+def solve_drawn(draws: PlayerDraws, agents: AgentState, ctx: GameContext,
+                peak_state: torch.Tensor, cfg: GTDRLConfig,
+                init_fracs: Optional[torch.Tensor] = None) -> Tuple[AgentState, SolveResult]:
+    """Run the game for one epoch from ``draw_epoch``'s draws: rounds × (red
+    half, black half).
 
     A round whose joint strategy or game value goes non-finite is rewound:
     agents and joint revert to the previous iterate, and the round is
@@ -283,12 +291,11 @@ def solve_epoch(
     best_val = torch.sum(player_rewards(ctx, joint0, peak_state))
     diverged = torch.zeros((), dtype=torch.int32, device=joint0.device)
     vals = []
-    for _ in range(cfg.rounds):
+    for r in range(cfg.rounds):
         prev_agents, prev_joint = agents, joint
-        agents, joint = half_update(agents, joint, draw_half(gen, ctx, cfg), 0, ctx,
-                                    peak_state, cfg)
-        agents, joint = half_update(agents, joint, draw_half(gen, ctx, cfg), 1, ctx,
-                                    peak_state, cfg)
+        for parity in (0, 1):
+            half = tree_map(lambda x: x[2 * r + parity], draws)
+            agents, joint = half_update(agents, joint, half, parity, ctx, peak_state, cfg)
         val = torch.sum(player_rewards(ctx, joint, peak_state))
         ok = torch.all(torch.isfinite(joint)) & torch.isfinite(val)
         agents = tree_map(lambda new, old: torch.where(ok, new, old), agents, prev_agents)
@@ -300,6 +307,19 @@ def solve_epoch(
         vals.append(val)
     return agents, SolveResult(best_joint, {"round_values": torch.stack(vals), "best": best_val,
                                             "diverged_rounds": diverged})
+
+
+def solve_epoch(
+    gen: torch.Generator,
+    agents: AgentState,
+    ctx: GameContext,
+    peak_state: torch.Tensor,
+    cfg: GTDRLConfig,
+    init_fracs: Optional[torch.Tensor] = None,
+) -> Tuple[AgentState, SolveResult]:
+    """``solve_drawn`` from an epoch's draws made on ``gen``."""
+    return solve_drawn(draw_epoch(gen, ctx, cfg, ctx.env.er.device), agents, ctx, peak_state,
+                       cfg, init_fracs)
 
 
 def deploy(gen: torch.Generator, env: E.EnvParams, objective: str,

@@ -4,7 +4,8 @@ The port of ``repro.core.ppo_joint``. One agent controls the entire cloud:
 state/action dims are |I|·|D|, the configuration whose state-space growth
 the paper's decomposition removes. It reuses ``core.ppo`` with a stack of
 one agent, so the comparison isolates the decomposition. Its draws come in
-as ``JointDraws`` (``draw_joint``).
+as ``JointDraws`` (``draw_joint``); ``draw_epoch`` adds the fresh agent, so
+that the batched engine stacks one whole start per row.
 """
 from __future__ import annotations
 
@@ -33,14 +34,31 @@ class JointDraws(NamedTuple):
     eps: torch.Tensor      # (1, iters, T, B, A) rollout normals
 
 
-def draw_joint(gen: torch.Generator, ctx: GameContext, cfg: JointPPOConfig) -> JointDraws:
+def draw_joint(gen: torch.Generator, ctx: GameContext, cfg: JointPPOConfig,
+               device=None) -> JointDraws:
     """The starts' Dirichlet has a constant concentration (around the
-    uniform split), so it is drawn whole on the host."""
+    uniform split), so it is drawn whole on the host. On ``device``, the
+    env's by default."""
+    dev = ctx.env.er.device if device is None else device
     joint = ctx.joint_shape()
     alpha = torch.full((1, cfg.ppo.iters, cfg.ppo.episodes) + joint, 20.0 / joint[-1] + 0.5)
     state0 = torch._sample_dirichlet(alpha, generator=gen).reshape(alpha.shape[:3] + (-1,))
-    eps = draw_eps(gen, 1, int(np.prod(joint)), cfg.ppo, ctx.env.er.device)
-    return JointDraws(to_device(state0, ctx.env.er.device), eps)
+    eps = draw_eps(gen, 1, int(np.prod(joint)), cfg.ppo, dev)
+    return JointDraws(to_device(state0, dev), eps)
+
+
+class EpochDraws(NamedTuple):
+    """What a solve starts from: a fresh agent (a stack of one) and its draws."""
+    agent: AgentState
+    draws: JointDraws
+
+
+def draw_epoch(gen: torch.Generator, ctx: GameContext, cfg: JointPPOConfig,
+               device) -> EpochDraws:
+    """The fresh agent and every draw of ``solve_epoch``, on ``device``."""
+    sdim = adim = int(np.prod(ctx.joint_shape()))
+    agent = agent_init(gen, sdim, adim, cfg.ppo, 1, device=device)
+    return EpochDraws(agent, draw_joint(gen, ctx, cfg, device))
 
 
 def solve_with(agent: AgentState, draws: JointDraws, ctx: GameContext,
@@ -78,8 +96,11 @@ def solve_with(agent: AgentState, draws: JointDraws, ctx: GameContext,
                               "mean_reward": info["mean_reward"][0]})
 
 
+def solve_drawn(draws: EpochDraws, ctx: GameContext, peak_state: torch.Tensor,
+                cfg: JointPPOConfig = JointPPOConfig()) -> SolveResult:
+    return solve_with(draws.agent, draws.draws, ctx, peak_state, cfg)
+
+
 def solve_epoch(gen: torch.Generator, ctx: GameContext, peak_state: torch.Tensor,
                 cfg: JointPPOConfig = JointPPOConfig()) -> SolveResult:
-    sdim = adim = int(np.prod(ctx.joint_shape()))
-    agent = agent_init(gen, sdim, adim, cfg.ppo, 1, device=ctx.env.er.device)
-    return solve_with(agent, draw_joint(gen, ctx, cfg), ctx, peak_state, cfg)
+    return solve_drawn(draw_epoch(gen, ctx, cfg, ctx.env.er.device), ctx, peak_state, cfg)

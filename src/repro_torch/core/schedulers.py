@@ -6,14 +6,14 @@ through the registry in ``core.game``; ``gen`` is a CPU ``torch.Generator``
 from which the solver draws (``core.draws``). gt-drl is stateful: its
 deployed agents thread from hour to hour.
 
-``run_day`` and ``run_day_scan`` are shims over ``ExperimentSpec``;
-``compare_techniques`` is the paper's table protocol on the hour loop.
-The batched and month engines (ROADMAP.md A.7) and run records (A.9) are
+``run_day``, ``run_day_scan``, ``run_days_batched`` and ``run_month`` are
+shims over ``ExperimentSpec``; ``compare_techniques`` is the paper's table
+protocol, on the batched engine by default. Run records (ROADMAP.md A.9) are
 not ported and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,13 +31,17 @@ _MODS = {"fd": (force_directed, force_directed.FDConfig()),
          "ddpg": (ddpg, ddpg.DDPGConfig()),
          "ppo": (ppo_joint, ppo_joint.JointPPOConfig())}
 
+# the stochastic solvers also register their hour split into draws and
+# compute (``game.TechniqueDef``), which the batched engine runs
 for _name, (_mod, _cfg) in _MODS.items():
-    game.register_technique(_name, _mod.solve_epoch, default_cfg=_cfg)
+    game.register_technique(_name, _mod.solve_epoch, default_cfg=_cfg,
+                            draw=getattr(_mod, "draw_epoch", None),
+                            compute=getattr(_mod, "solve_drawn", None))
 game.register_technique(
     "gt-drl", step=gt_drl.solve_epoch, default_cfg=gt_drl.GTDRLConfig(),
     init_state=lambda gen, env, objective, cfg, routed, pretrain:
         gt_drl.deploy(gen, env, objective, cfg, routed, pretrain),
-    stateful=True)
+    stateful=True, draw=gt_drl.draw_epoch, compute=gt_drl.solve_drawn)
 
 
 class StatefulScheduler:
@@ -120,12 +124,31 @@ def run_day_scan(env: E.EnvParams, technique: str, objective: str = "carbon", *,
     return experiment.run(spec, env, peak_state0=peak_state0, solver_state0=solver_state0)
 
 
-def run_days_batched(*args, **kwargs):
-    raise NotImplementedError("the port does not run the batched engine yet: ROADMAP.md A.7")
+def run_days_batched(envs, technique: str, objective: str = "carbon", *,
+                     seeds: Optional[Sequence[int]] = None, hours: int = 24,
+                     pretrain: bool = True, cfg_override: Any = None,
+                     solver_state0: Any = None, routed: bool = False,
+                     shard: bool = False) -> Dict[str, Any]:
+    """A fleet of scenario-days, one vmap over the rows a hour:
+    ``run(spec, envs)`` with engine="batched"."""
+    from . import experiment
+    spec = _spec(technique, objective, "batched", hours=hours, pretrain=pretrain,
+                 cfg=cfg_override, routed=routed,
+                 seeds=None if seeds is None else tuple(seeds))
+    return experiment.run(spec, envs, solver_state0=solver_state0, shard=shard)
 
 
-def run_month(*args, **kwargs):
-    raise NotImplementedError("the port does not run the month engine yet: ROADMAP.md A.7")
+def run_month(envs, technique: str, objective: str = "carbon", *,
+              days: Optional[int] = None, seed: int = 0, hours: int = 24,
+              pretrain: bool = True, peak_state0: Optional[torch.Tensor] = None,
+              cfg_override: Any = None, solver_state0: Any = None,
+              routed: bool = False) -> Dict[str, Any]:
+    """Days in a row, the monthly peak and the solver state threaded:
+    ``run(spec, envs)`` with engine="month"."""
+    from . import experiment
+    spec = _spec(technique, objective, "month", days=days, seed=seed, hours=hours,
+                 pretrain=pretrain, cfg=cfg_override, routed=routed)
+    return experiment.run(spec, envs, peak_state0=peak_state0, solver_state0=solver_state0)
 
 
 def run_day(env: E.EnvParams, technique: str, objective: str = "carbon", *,
@@ -169,23 +192,26 @@ def compare_techniques(envs, techniques=TECHNIQUES, objective: str = "carbon", *
     pattern), mean ± stderr of the daily totals. The ranked metric is daily
     carbon under ``objective="carbon"`` and daily total cost otherwise.
 
-    Only ``engine="loop"`` runs here. Each stateful technique is deployed
-    once, from ``generator(seed0 + 999)`` on the first env, and every day
-    starts from that snapshot. Env r's day runs with seed ``seed0 + r``.
+    ``engine="batched"`` (default) runs every technique once over all the
+    envs through ``run_days_batched`` (one vmap over the envs a hour;
+    ``shard`` as there). ``engine="loop"`` plays each env's day on the hour
+    loop, the parity reference. Both deploy each stateful technique once,
+    from ``generator(seed0 + 999)`` on the first env, and start every day
+    from that snapshot; env r's day runs with seed ``seed0 + r``, so the two
+    engines agree within float32 summation order. ``cfg_overrides`` maps
+    technique -> config.
     """
     if isinstance(envs, E.EnvParams):
         envs = [envs]
     envs = list(envs)
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown engine {engine!r}; known: batched, loop")
-    if engine == "batched" or shard:
-        raise NotImplementedError(
-            "the port compares techniques on engine='loop' only; the batched engine "
-            "is ROADMAP.md A.7")
     if record:
         raise NotImplementedError("run records are not ported yet: ROADMAP.md A.9")
     overrides = dict(cfg_overrides or {})
     metric = "carbon_kg" if objective == "carbon" else "cost_usd"
+    seeds = [seed0 + r for r in range(len(envs))]
+    env_b = E.stack_envs(envs) if engine == "batched" else None
     out: Dict[str, Dict[str, Any]] = {}
     for t in techniques:
         tdef = game.get_technique(t)
@@ -193,12 +219,18 @@ def compare_techniques(envs, techniques=TECHNIQUES, objective: str = "carbon", *
         state0 = (tdef.init_state(generator(seed0 + 999), envs[0], objective,
                                   tdef.resolve_cfg(cfg), routed, True)
                   if tdef.stateful else None)
+        if engine == "batched":
+            res = run_days_batched(env_b, t, objective, seeds=seeds, hours=hours,
+                                   cfg_override=cfg, solver_state0=state0, routed=routed,
+                                   shard=shard)
+            out[t] = _stats(res["totals"][metric], res["per_epoch"][metric])
+            continue
         solver = None if tdef.stateful else get_scheduler(
             t, envs[0], objective, **({"cfg": cfg} if cfg is not None else {}))
         vals, curves = [], []
         for r, env in enumerate(envs):
             s = StatefulScheduler(t, state0, cfg).solve_epoch if tdef.stateful else solver
-            res = run_day(env, t, objective, seed=seed0 + r, hours=hours, solver=s,
+            res = run_day(env, t, objective, seed=seeds[r], hours=hours, solver=s,
                           engine="loop", routed=routed)
             vals.append(res["totals"][metric])
             curves.append([e[metric] for e in res["per_epoch"]])

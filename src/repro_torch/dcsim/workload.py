@@ -2,7 +2,8 @@
 truth for cloud arrival-rate construction.
 
 A copy of ``repro.dcsim.workload`` (host-side numpy, the same RNG streams).
-The scenario engine that also calls it is not ported yet.
+The scenario engine's ``traffic_pattern`` and ``arrival_resample``
+transforms (``repro_torch.scenarios``) call it too.
 
 Patterns: sinusoidal (consumer-interactive), flat (continuous-compute), plus
 the beyond-paper shapes used by the scenario engine (`repro.scenarios`):

@@ -1,9 +1,9 @@
 """Nested dicts, lists, tuples and NamedTuples of tensors: the port's pytrees.
 
 The JAX package's solvers thread pytrees (parameter dicts, ``OptState``,
-``AgentState``) through ``jax.tree_util``. These two functions are the part of
-it the port needs. Dict keys are visited in sorted order, as JAX flattens
-them, so a sum over the leaves runs in the reference's order.
+``AgentState``) through ``jax.tree_util``. These functions are the part of it
+the port needs. Dict keys are flattened in sorted order, as JAX flattens them,
+so a sum over the leaves runs in the reference's order.
 """
 from __future__ import annotations
 
@@ -29,3 +29,20 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [x for c in tree for x in tree_leaves(c)]
     return [tree]
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """``template``'s tree with its leaves, in ``tree_leaves`` order, replaced
+    by ``leaves``; a dict keeps its own key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            new = {k: build(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            children = [build(c) for c in t]
+            return type(t)(*children) if hasattr(t, "_fields") else type(t)(children)
+        return next(it)
+
+    return build(template)

@@ -14,15 +14,28 @@ import pytest
 # the port needs torch; the imports below need the port (hence the E402 waiver)
 torch = pytest.importorskip("torch")
 
+from repro import faults as JF
 from repro import scenarios as S
 from repro.core import ExperimentSpec as JaxSpec
 from repro.core import run as jax_run
 from repro.core.nash import NashConfig as JaxNash
 from repro.dcsim import env as JE
+from repro_torch import faults as TF
 from repro_torch.convert import env_from_numpy
 from repro_torch.core import ExperimentSpec, game, run
 from repro_torch.core.nash import NashConfig
 from repro_torch.dcsim import env as TE
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are tiny, so intra-op threads only contend
+    with the other test workers' processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ENV = JE.build_env(4, seed=0)
 SLA_ENV = S.make("wan_degradation", factor=3.0, extra_ms=30.0)(
@@ -116,23 +129,54 @@ def test_prebuilt_solver_and_peak_state():
     _hold_day(got, want, ENV)
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(engine="batched"), "A.7"),
-    (dict(engine="month"), "A.7"),
-    (dict(guard=True), "A.8"),
-    (dict(failover="drop"), "A.8"),
-    (dict(taps=("engine/hour",)), "A.9"),
-])
+@pytest.mark.parametrize("option,item", [(dict(taps=("engine/hour",)), "A.9")])
 def test_unported_spec_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         run(ExperimentSpec(hours=1, **option), T_ENV)
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(shard=True), "A.7"), (dict(record=True), "A.9"), (dict(faults=object()), "A.8")])
+@pytest.mark.parametrize("option,want", [
+    (dict(engine="batched"), dict(engine="batched")),
+    (dict(engine="month", days=1), dict(engine="month", days=1)),
+    (dict(guard=True), dict(guard=True)),
+    (dict(failover="drop"), {}),
+])
+def test_ported_spec_options_match_jax(option, want):
+    """The options the earlier slices refused now run: the batched and month
+    engines, the finite-guard, and a failover policy (consulted only under
+    faults, so an unfaulted day is the plain day)."""
+    got = run(ExperimentSpec(technique="fd", hours=2, **option), T_ENV)
+    ref = jax_run(JaxSpec(technique="fd", hours=2, **want), ENV)
+    totals = got["totals"]
+    for k in ("carbon_kg", "cost_usd"):
+        np.testing.assert_allclose(np.asarray(totals[k]), np.asarray(ref["totals"][k]),
+                                   rtol=1e-5, err_msg=k)
+    assert set(totals) == set(ref["totals"])
+
+
+@pytest.mark.parametrize("option,item", [(dict(record=True), "A.9")])
 def test_unported_run_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         run(ExperimentSpec(hours=1), T_ENV, **option)
+
+
+@pytest.mark.parametrize("option", ["shard", "faults"])
+def test_ported_run_options_match_jax(option):
+    """``shard=True`` on one device runs the batched program as it is;
+    ``faults=`` plans on the env and executes on the realized one."""
+    if option == "shard":
+        spec = dict(technique="fd", hours=2, engine="batched")
+        got = run(ExperimentSpec(**spec), [T_ENV], shard=True)
+        ref = jax_run(JaxSpec(**spec), [ENV], shard=True)
+    else:
+        spec = dict(technique="fd", hours=2)
+        got = run(ExperimentSpec(**spec), T_ENV, faults=TF.dc_crash(T_ENV, dc=1, start=0))
+        ref = jax_run(JaxSpec(**spec), ENV, faults=JF.dc_crash(ENV, dc=1, start=0))
+    assert set(got["totals"]) == set(ref["totals"])
+    for k in ("carbon_kg", "cost_usd", "failover_moved"):
+        if k in ref["totals"]:
+            np.testing.assert_allclose(np.asarray(got["totals"][k]),
+                                       np.asarray(ref["totals"][k]), rtol=1e-5, err_msg=k)
 
 
 def test_stateful_technique_raises_and_unknown_technique_names_the_registered():
@@ -168,6 +212,8 @@ def test_spec_validation_and_mismatched_options():
         run(ExperimentSpec(hours=1), T_ENV, solver=lambda *a: None)
     with pytest.raises(ValueError, match="scan-only"):
         run(ExperimentSpec(hours=1, engine="loop"), T_ENV, solver_state0=())
+    with pytest.raises(ValueError, match="shard"):
+        run(ExperimentSpec(hours=1), T_ENV, shard=True)
 
 
 def test_spec_defaults_match_jax():

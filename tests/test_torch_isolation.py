@@ -53,7 +53,8 @@ SOLVER_FILES = [ROOT / "src" / "repro_torch" / "optim" / "adamw.py"] + [
     ROOT / "src" / "repro_torch" / "core" / f"{m}.py"
     for m in ("game", "force_directed", "nash", "networks", "draws", "ppo", "gt_drl", "genetic",
               "ppo_joint", "ddpg")] + [
-    ROOT / "src" / "repro_torch" / "dcsim" / f"{m}.py" for m in ("env", "latency", "ties")]
+    ROOT / "src" / "repro_torch" / "dcsim" / f"{m}.py" for m in ("env", "latency", "ties")] + [
+    ROOT / "src" / "repro_torch" / "faults" / f"{m}.py" for m in ("failover", "guard")]
 
 
 @pytest.mark.parametrize("path", SOLVER_FILES, ids=lambda p: str(p.relative_to(ROOT)))

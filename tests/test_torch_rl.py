@@ -49,6 +49,17 @@ from repro_torch.core.draws import Gammas, dirichlet, draw_gammas
 from repro_torch.optim import adamw as TA
 from repro_torch.tree import tree_leaves, tree_map
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are tiny, so intra-op threads only contend
+    with the other test workers' processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ENV = JE.build_env(4, seed=0)
 SLA_ENV = S.make("wan_degradation", factor=3.0, extra_ms=30.0)(
     S.make("sla_tighten", tighten=0.6, price=1e-4)(ENV))

@@ -46,6 +46,17 @@ from repro_torch.core import ppo_joint as TPJ
 from repro_torch.core import schedulers as TS
 from repro_torch.optim.adamw import OptState
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are tiny, so intra-op threads only contend
+    with the other test workers' processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ENVS = [JE.build_env(4, seed=s) for s in (0, 1)]
 T_ENVS = [env_from_numpy({k: np.asarray(v) for k, v in e._asdict().items()}, device="cpu")
           for e in ENVS]
@@ -214,8 +225,9 @@ def test_compare_techniques_fd_nash_match_jax():
 
 
 def test_compare_techniques_ranks_the_six_and_deploys_once():
-    """All six on the loop engine; gt-drl is deployed once (one pretraining
-    for both envs); the unported options raise naming their items."""
+    """All six on the loop engine and on the default batched one; gt-drl is
+    deployed once a comparison (one pretraining for both envs); the batched
+    and month shims run; ``record=`` raises naming A.9."""
     cfgs = {t: _fast(t) for t in technique_names()}
     calls = []
     deploy = TS.gt_drl.deploy
@@ -233,13 +245,22 @@ def test_compare_techniques_ranks_the_six_and_deploys_once():
     assert len(calls) == 1 and tuple(out) == TS.TECHNIQUES
     for t, r in out.items():
         assert math.isfinite(r["mean"]) and r["stderr"] >= 0 and len(r["curve_mean"]) == 1, t
-    with pytest.raises(NotImplementedError, match="A.7"):
-        compare_techniques(T_ENVS, ("fd",), hours=1)
+    # the default (batched) engine deploys once too, and ranks as the loop
+    TS.gt_drl.deploy = counting_deploy
+    try:
+        batched = compare_techniques(T_ENVS, objective="cost", hours=1, cfg_overrides=cfgs)
+    finally:
+        TS.gt_drl.deploy = deploy
+    assert len(calls) == 2 and tuple(batched) == TS.TECHNIQUES
+    for t in ("fd", "nash"):
+        np.testing.assert_allclose(batched[t]["mean"], out[t]["mean"], rtol=1e-5)
     with pytest.raises(NotImplementedError, match="A.9"):
         compare_techniques(T_ENVS, ("fd",), hours=1, engine="loop", record=True)
-    for fn in (TS.run_days_batched, TS.run_month):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            fn(T_ENVS, "fd")
+    days = TS.run_days_batched(T_ENVS, "fd", hours=1, cfg_override=cfgs["fd"])
+    month = TS.run_month(T_ENVS, "fd", hours=1, cfg_override=cfgs["fd"])
+    assert days["totals"]["cost_usd"].shape == (2,) and month["days"] == 2
+    np.testing.assert_allclose(month["per_day"]["cost_usd"][0], days["per_epoch"]["cost_usd"][0],
+                               rtol=1e-6)
 
 
 def test_stats_guards_a_single_run():
