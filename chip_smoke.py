@@ -5,12 +5,14 @@
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (ignored by git), holds each kernel against its plain
-PyTorch version on the card, times both, then serves llama3.2-1b at full
-width (16 layers, d_model 2048, bf16, random weights from seed 0) through
-``ModelServer.generate`` and a two-data-center ``Fleet``, and checks that the
-serving path went through both kernels and that its logits and tokens are
-sane. Then it drives the scheduler path (``repro_torch.core``) on the paper's
-fleets built on the card:
+PyTorch version on the card (head dim 16 in fp32 too), times both, then
+serves llama3.2-1b at full width (16 layers, d_model 2048, bf16, random
+weights from seed 0) through ``ModelServer.generate`` and a two-data-center
+``Fleet``, and checks that the serving path went through both kernels and
+that its logits and tokens are sane; ``[fleet-smoke]`` serves the default
+``Fleet`` (``cfg.smoke()``, head dim 16) the same way. Then it drives the
+scheduler path (``repro_torch.core``) on the paper's fleets built on the
+card:
 
 - ``[gtdrl-step]`` / ``[gtdrl-profile]``: one GT-DRL half-update at D = 16
   on the card and on the host CPU from the same agents and draws (the card's
@@ -21,11 +23,14 @@ fleets built on the card:
   work;
 - ``[compare]``: ``compare_techniques`` ranking the paper's six techniques
   over two fleets on its default batched engine (fd held against the hour
-  loop); ``[sched-profile]``: one fd hour under the profiler;
+  loop), each writing a run record; ``[obs]``: an fd day with its taps off
+  and on (bit for bit), the batched stress day's taps, a tapped gt-drl
+  half-update under CUDA's sync debug mode, and the scoreboard rendered from
+  the records; ``[sched-profile]``: one fd hour under the profiler;
 - the scenario engine at D = 16: ``[scenarios]`` (every suite built on the
   card, equal to the CPU build), ``[sched-batched]`` (fd over the 11-day
   stress suite under one vmap a hour, rows against the card's scan days,
-  then a profiled batched hour), ``[sched-month]`` (days in a row, the peak
+  GA, ddpg and joint PPO over the same rows, then a profiled batched hour), ``[sched-month]`` (days in a row, the peak
   threaded), ``[sched-faults]`` (a crash and a brownout under each failover
   policy, and a stacked random trace a row on the batched engine) and
   ``[sweep]`` (a severity grid, then killed after two chunks and resumed
@@ -55,7 +60,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import faults as fault_mod  # noqa: E402
-from repro_torch import scenarios  # noqa: E402
+from repro_torch import obs, scenarios  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ExperimentSpec, compare_techniques, run, sweep  # noqa: E402
 from repro_torch.core import experiment, game, gt_drl, schedulers  # noqa: E402
@@ -112,6 +117,18 @@ DECODE_LENGTH_CASES = [
     (4, 256, 4, 1, 128, 25.0, (0, 256, 64, 129)),
     (3, 192, 14, 2, 32, 0.0, (192, 0, 65)),
 ]
+# head dim 16, fp32 only: the smoke configs' (cfg.smoke()), which the default
+# Fleet serves; the smoke fleet's prefill and decode shapes first
+FLASH_CASES_D16 = [
+    (4, 16, 16, 4, 4, 16, True, 0, 0.0, 0),
+    (2, 100, 100, 4, 2, 16, True, 0, 0.0, 0),
+    (1, 96, 320, 4, 1, 16, True, 64, 25.0, 224),
+]
+DECODE_CASES_D16 = [
+    (4, 128, 4, 4, 16, 0.0),
+    (2, 257, 8, 2, 16, 25.0),
+]
+DECODE_LENGTH_CASES_D16 = [(3, 192, 8, 2, 16, 0.0, (192, 0, 65))]
 # fp32: summation order only; bf16: one rounding of O(1) outputs (2^-8) plus order
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -173,6 +190,11 @@ COMPARE_HOURS = 1
 # never widths: the 11 days of the stress suite, 3 days of the month
 BATCH_HOURS, MONTH_DAYS, MONTH_HOURS, FAULT_HOURS, SWEEP_HOURS = 2, 3, 2, 2, 2
 STACKED_ROWS = 4  # stress-suite rows under a stacked random trace a row
+# the stochastic techniques held card against CPU on the batched engine
+# (default configs, the stress suite, unrouted): each row's draws come from
+# the host, the same in both processes, so only float32 order differs; held
+# as fd is (cost SCHED_OBJECTIVE_RTOL, others SCHED_OTHER_RTOL)
+BATCHED_STOCHASTIC = ("ga", "ddpg", "ppo")
 # run_sweep.py --quick's grid over a priced D = 16 fleet, routed fd
 SWEEP_GRID = {"wan_degradation": (1.0, 3.0),
               "origin_shift": tuple({"weight": w, "toward": (0,)} for w in (0.0, 0.8))}
@@ -181,6 +203,11 @@ SWEEP_KILL_AFTER = 2
 # batched rows against the card's scan days of their seeds: the same
 # program on other shapes, so float32 summation order only
 ROW_RTOL = 1e-5
+# [obs]: the fd day whose taps are switched on, and the records that
+# [compare] writes and [obs] renders into a scoreboard
+OBS_HOURS = 2
+OBS_TAPS = ("engine/hour", "game/nash_residual")
+RECORDS = ROOT / "build" / "chip_smoke_records.jsonl"
 
 
 def fail(msg: str) -> None:
@@ -357,15 +384,18 @@ def main() -> int:
         if not err < TOL[dtype]:
             fail(f"{what} {dtype}: max err {err} >= {TOL[dtype]}")
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for case in FLASH_CASES:
+    cases = [(dtype, FLASH_CASES, DECODE_CASES, DECODE_LENGTH_CASES)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((torch.float32, FLASH_CASES_D16, DECODE_CASES_D16, DECODE_LENGTH_CASES_D16))
+    for dtype, flash_cases, decode_cases, decode_length_cases in cases:
+        for case in flash_cases:
             b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
             q, k, v = randn(b, sq, h, d, dtype=dtype), randn(b, skv, kvh, d, dtype=dtype), \
                 randn(b, skv, kvh, d, dtype=dtype)
             kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
             want = ref.attention_ref(q, k, v, **kw)
             check(f"flash_attention {case}", flash_mod.flash_attention(q, k, v, **kw), want, dtype)
-        for case in DECODE_CASES:
+        for case in decode_cases:
             b, s, h, kvh, d, softcap = case
             q, k, v = randn(b, h, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype), \
                 randn(b, s, kvh, d, dtype=dtype)
@@ -373,7 +403,7 @@ def main() -> int:
             want = ref.decode_attention_ref(q, k, v, lens, softcap=softcap)
             check(f"decode_attention {case}",
                   dec_mod.decode_attention(q, k, v, lens, softcap=softcap), want, dtype)
-        for case in DECODE_LENGTH_CASES:
+        for case in decode_length_cases:
             b, s, h, kvh, d, softcap, lengths = case
             q, k, v = randn(b, h, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype), \
                 randn(b, s, kvh, d, dtype=dtype)
@@ -387,7 +417,9 @@ def main() -> int:
             check(f"decode_attention {case} rows of length > 0", out[rows],
                   ref.decode_attention_ref(q, k, v, lens, softcap=softcap)[rows], dtype)
     phase("kernels-cases", flash=len(FLASH_CASES) * 2, decode=len(DECODE_CASES) * 2,
-          decode_lengths=len(DECODE_LENGTH_CASES) * 2, tol_fp32=TOL[torch.float32],
+          decode_lengths=len(DECODE_LENGTH_CASES) * 2,
+          d16_fp32=len(FLASH_CASES_D16 + DECODE_CASES_D16 + DECODE_LENGTH_CASES_D16),
+          tol_fp32=TOL[torch.float32],
           tol_bf16=TOL[torch.bfloat16], result="within")
 
     cfg = get_config(ARCH)
@@ -560,6 +592,7 @@ def main() -> int:
           total=report["total"], launches=fleet_launches,
           tok_s={str(k): f"{v:.1f}" for k, v in report["per_server_tps"].items()})
     del fleet
+    fleet_smoke_phase(dev)
 
     # -- 6. the scheduler path: fleet env, game, simulator ----------------
     sched_phases(dev)
@@ -572,6 +605,48 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fleet_smoke_phase(dev: torch.device) -> None:
+    """``Fleet([ARCH], 2)`` at its defaults (cfg.smoke(): head dim 16, fp32)
+    on the card: routed through both kernels, then one server's prefill and
+    first decode logits held against ``impl="ref"`` at the fp32 tolerance."""
+    ar = np.array([[3.0, 1.0]], dtype=np.float32)
+    fleet = Fleet([ARCH], 2)
+    srv = fleet.servers[(0, 0)]
+    cfg = srv.cfg
+    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+    report = fleet.route(ar, requests_per_unit=2, prompt_len=16, max_new=4)
+    launches = (flash_mod.KERNEL.launches, dec_mod.KERNEL.launches)
+    if report["dispatched"] != {(0, 0): 3, (0, 1): 1}:
+        fail(f"fleet-smoke dispatched {report['dispatched']} for ar {ar.tolist()}")
+    if launches != (2 * cfg.num_layers, 2 * cfg.num_layers * 3):
+        fail(f"fleet-smoke launches {launches}")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (srv.batch_size, 16)).astype(np.int32)).to(dev)}
+    token = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (srv.batch_size, 1)).astype(np.int32)).to(dev)
+    pos = torch.full((srv.batch_size, 1), 16, dtype=torch.int32, device=dev)
+    out = {}
+    for impl in ("auto", "ref"):
+        logits, cache = prefill_step(srv.params, batch, cfg=cfg, cache_len=srv.cache_len,
+                                     impl=impl)
+        dlogits, _ = decode_step(srv.params, token, pos, cache, cfg=cfg, impl=impl)
+        out[impl] = {"prefill": logits, "decode": dlogits}
+    fields = {}
+    for step in ("prefill", "decode"):
+        got, want = out["auto"][step], out["ref"][step]
+        rel, err = rel_norm(got, want), max_err(got, want)
+        if not (torch.isfinite(got).all() and rel <= FP32_LOGIT_RTOL
+                and err <= FP32_LOGIT_ATOL):
+            fail(f"fleet-smoke {step} logits: kernel vs ref relative norm {rel}, "
+                 f"max |diff| {err}")
+        fields[f"{step}_rel_norm"] = f"{rel:.3g}"
+        fields[f"{step}_max_abs"] = f"{err:.3g}"
+    phase("fleet-smoke", arch=cfg.name, head_dim=cfg.hd(), dtype=cfg.dtype,
+          layers=cfg.num_layers, dispatched={str(k): n for k, n in report["dispatched"].items()},
+          launches=launches, tol=f"rel norm {FP32_LOGIT_RTOL}, abs {FP32_LOGIT_ATOL}", **fields)
 
 
 def priced_env(num_dcs: int, device, seed: int = 0) -> sched_env.EnvParams:
@@ -733,15 +808,103 @@ def gtdrl_step_phase(dev: torch.device) -> None:
                           num_dcs=16, routed=routed)
 
 
+def obs_phase(dev: torch.device) -> None:
+    """Telemetry on the card (priced D = 16, cost_sla, routed): an fd day
+    with its taps off and then on, bit for bit; the batched fd day over the
+    stress suite with engine/hour live, an event an hour and row; one gt-drl
+    half-update with its taps live under CUDA's sync debug mode; and the
+    scoreboard rendered from [compare]'s records."""
+    env = priced_env(16, dev)
+    spec = ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=OBS_HOURS)
+    off, off_ms = timed(dev, lambda: run(spec.replace(taps=()), env))
+    with obs.capture() as buf:
+        on, on_ms = timed(dev, lambda: run(spec.replace(taps=OBS_TAPS), env))
+    bit_equal = all(on["totals"][k] == v for k, v in off["totals"].items()) and all(
+        a[k] == b[k] for a, b in zip(on["per_epoch"], off["per_epoch"]) for k in a)
+    series = {k: buf.series("engine/hour", k) for k in ("carbon_kg", "cost_usd",
+                                                         "sla_miss_cost_usd", "grid_power_w")}
+    series_exact = all(np.array_equal(v, np.asarray([r[k] for r in on["per_epoch"]], v.dtype))
+                       for k, v in series.items())
+    residual = buf.series("game/nash_residual", "residual")
+    counts = buf.counts()
+    phase("obs", what="fd day, taps off then on", num_dcs=16, routed=True, hours=OBS_HOURS,
+          taps=",".join(OBS_TAPS), events=counts, bit_equal=bit_equal,
+          series_equals_per_epoch=series_exact,
+          residual=[f"{x:.4g}" for x in residual], off_ms=f"{off_ms:.1f}", on_ms=f"{on_ms:.1f}")
+    if not (bit_equal and series_exact
+            and counts == {name: OBS_HOURS for name in OBS_TAPS}
+            and np.all(np.isfinite(residual)) and np.all(residual >= 0)):
+        fail(f"obs fd day: bit_equal {bit_equal}, series {series_exact}, {counts}, {residual}")
+
+    envs = stress_envs(dev)
+    bspec = batched_spec(True).replace(taps=("engine/hour",))
+    with obs.capture() as buf:
+        got, ms = timed(dev, lambda: run(bspec, envs))
+    events = buf.by_name("engine/hour")
+    n = len(envs)
+    taus = [int(e["tau"]) for e in events]
+    rows_exact = len(events) == n * BATCH_HOURS and taus == [t for t in range(BATCH_HOURS)
+                                                             for _ in range(n)] and all(
+        float(events[t * n + r][k]) == float(got["per_epoch"][k][r, t])
+        for t in range(BATCH_HOURS) for r in range(n) for k in ("carbon_kg", "cost_usd"))
+    phase("obs", what="batched fd over the stress suite, engine/hour live", days=n,
+          num_dcs=16, routed=True, hours=BATCH_HOURS, events=len(events),
+          hour_then_row_equal_per_epoch=rows_exact, card_ms=f"{ms:.1f}")
+    if not rows_exact:
+        fail(f"obs batched: {len(events)} events for {n} rows x {BATCH_HOURS} hours, "
+             f"taus {taus}")
+
+    cfg = gt_drl.GTDRLConfig()
+    ctx = game.GameContext(env=env, tau=9, objective="cost_sla", routed=True)
+    gen = generator(0)
+    cpu_ctx = game.GameContext(env=priced_env(16, "cpu"), tau=9, objective="cost_sla",
+                               routed=True)
+    agents = gt_drl.init_agents(gen, env, cfg, True)
+    draws = tree_map(lambda x: x.to(dev), gt_drl.draw_half(gen, cpu_ctx, cfg))
+    joint, peak = game.uniform_fractions(ctx), 0.5 * sched_env.dp_max_t(env, 9)
+    with obs.capture("gt_drl/*") as buf:
+        sync(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = gt_drl.half_update(agents, joint, draws, 1, ctx, peak, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ppo = buf.by_name("gt_drl/ppo")
+    players = sorted(int(v["player"]) for v in ppo)
+    active = list(range(1, sched_env.num_players(env), 2))
+    finite = all(np.all(np.isfinite(v["actor_loss"])) and np.all(np.isfinite(v["mean_reward"]))
+                 for v in ppo) and all(bool(torch.isfinite(x).all()) for x in tree_leaves(out))
+    phase("obs", what="one gt-drl half-update, gt_drl/* live, sync debug mode", num_dcs=16,
+          routed=True, host_reads="none", events=buf.counts(), players=players, finite=finite)
+    if players != active or not finite:
+        fail(f"obs gt-drl: ppo events of players {players}, active {active}, finite {finite}")
+
+    recs = obs.load_records(str(RECORDS))
+    board = obs.report(recs, title="chip_smoke [compare] scoreboard")
+    for line in board.splitlines():
+        print(f"  {line}")
+    ranked = [ln.split("|")[1].strip() for ln in board.splitlines()
+              if ln.startswith("| ") and "technique" not in ln]
+    phase("obs", what="records -> scoreboard", records=len(recs),
+          path=str(RECORDS.relative_to(ROOT)), ranked=",".join(ranked),
+          device_kind=recs[0]["device_kind"] if recs else "none")
+    if sorted(ranked) != sorted(schedulers.TECHNIQUES) or any(
+            r["backend"] != "cuda" or r["kind"] != "compare" for r in recs):
+        fail(f"obs records: {len(recs)} records ranked {ranked}")
+
+
 def compare_phase(dev: torch.device) -> None:
     """The paper's table on the card: every technique over two priced D = 16
-    fleets on the default (batched) engine, ranked by the day's cost; fd's
-    mean held against the hour loop's."""
+    fleets on the default (batched) engine, ranked by the day's cost, each
+    technique's run record written to RECORDS; fd's mean held against the
+    hour loop's."""
     envs = [priced_env(16, dev, seed) for seed in (0, 1)]
     means = {}
+    RECORDS.unlink(missing_ok=True)
     for t in schedulers.TECHNIQUES:
         r, ms = timed(dev, lambda: compare_techniques(envs, (t,), "cost_sla",
-                                                      hours=COMPARE_HOURS)[t])
+                                                      hours=COMPARE_HOURS,
+                                                      record=str(RECORDS))[t])
         if not (np.isfinite(r["mean"]) and np.isfinite(r["stderr"])
                 and len(r["curve_mean"]) == COMPARE_HOURS):
             fail(f"compare {t}: {r}")
@@ -796,6 +959,7 @@ def _sched_phases(dev: torch.device, child, ref_path: Path) -> None:
     gtdrl_step_phase(dev)
     card = {case: traced_day(sched_spec(case), priced_env(case[1], dev)) for case in SCHED_CASES}
     compare_phase(dev)
+    obs_phase(dev)
     # where the time of one fd hour goes on the card (D = 16, routed)
     spec = ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=1)
     env = priced_env(16, dev)
@@ -948,8 +1112,9 @@ def scenario_runs(device) -> dict:
     for routed in (False, True):
         envs = stress_envs(device)
         out[f"batched|{routed}"] = timed(device, lambda: run(batched_spec(routed), envs))
-    out["ga|stress"] = timed(device, lambda: run(batched_spec(False).replace(technique="ga"),
-                                                 stress_envs(device)))
+    for t in BATCHED_STOCHASTIC:
+        out[f"{t}|stress"] = timed(device, lambda: run(
+            batched_spec(False).replace(technique=t), stress_envs(device)))
     out["sweep"] = timed(device, lambda: sweep(
         sweep_spec(), SWEEP_GRID, base_env=priced_env(16, device),
         base_scenarios=SWEEP_BASE)["results"]["fd"])
@@ -1053,18 +1218,19 @@ def batched_phase(dev: torch.device, card: dict, ref: dict, single: dict) -> Non
                       scan_day_ms=f"{rows[0]:.1f}",
                       scan_ms_per_hour=f"{rows[0] / BATCH_HOURS:.1f}", cpu_ms=f"{cpu_ms:.1f}",
                       rows_0_2_vs_scan=f"cost {ROW_RTOL}, others {SCHED_OTHER_RTOL}")
-    # a stochastic technique on the batched engine: every row draws on the
-    # host, so card and CPU see the same draws
-    (got, ms), (want, cpu_ms) = card["ga|stress"], ref["ga|stress"]
-    if not all(np.isfinite(np.asarray(v, float)).all() for v in got["per_epoch"].values()):
-        fail("sched-batched ga: non-finite metrics")
-    cost = np.asarray(want["totals"]["cost_usd"], float)
-    per_row = np.abs(np.asarray(got["totals"]["cost_usd"], float) - cost) / np.abs(cost)
-    hold_card_cpu("sched-batched", got["totals"], want["totals"], sum_car, technique="ga",
-                  suite="stress", days=len(envs), num_dcs=16, routed=False, hours=BATCH_HOURS,
-                  card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
-                  rows_cost_within_row_rtol=f"{int(np.sum(per_row <= ROW_RTOL))}/{len(envs)}",
-                  row_cost_max_rel_diff=f"{per_row.max():.3g}")
+    # the stochastic techniques on the batched engine: every row draws on
+    # the host, so card and CPU see the same draws
+    for t in BATCHED_STOCHASTIC:
+        (got, ms), (want, cpu_ms) = card[f"{t}|stress"], ref[f"{t}|stress"]
+        if not all(np.isfinite(np.asarray(v, float)).all() for v in got["per_epoch"].values()):
+            fail(f"sched-batched {t}: non-finite metrics")
+        cost = np.asarray(want["totals"]["cost_usd"], float)
+        per_row = np.abs(np.asarray(got["totals"]["cost_usd"], float) - cost) / np.abs(cost)
+        hold_card_cpu("sched-batched", got["totals"], want["totals"], sum_car, technique=t,
+                      suite="stress", days=len(envs), num_dcs=16, routed=False,
+                      hours=BATCH_HOURS, card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+                      rows_cost_within_row_rtol=f"{int(np.sum(per_row <= ROW_RTOL))}/{len(envs)}",
+                      row_cost_max_rel_diff=f"{per_row.max():.3g}")
     # where the time of one batched hour goes, beside [sched-profile]'s
     # single-env fd hour (D = 16, routed)
     spec = batched_spec(True).replace(hours=1)

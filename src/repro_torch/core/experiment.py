@@ -9,10 +9,10 @@ result dict of the JAX package's ``run``.
 
 - ``"scan"`` and ``"loop"``: one env, one plain hour loop. The JAX package
   compiles the day into one ``lax.scan`` artifact keyed by the spec; jit
-  keys have no torch counterpart, so there is no compile cache. Both
-  engines step the registered technique through one
-  ``schedulers.StatefulScheduler`` from the same initial state, so they
-  give the same day exactly.
+  keys have no torch counterpart, so there is no compile cache (the same
+  keys account dispatches, ``obs.cache_stats()``). Both engines step the
+  registered technique through one ``schedulers.StatefulScheduler`` from
+  the same initial state, so they give the same day exactly.
 - ``"batched"``: a fleet of scenario-days. Each hour is ONE
   ``torch.func.vmap`` over the rows (the JAX package's ``jax.vmap`` of the
   day), so a batch launches the kernels of one day, each over all rows.
@@ -41,9 +41,16 @@ it equals the scan day of that seed from the same initial state; month day
 d draws from that of ``spec.seed + d``. Drawing on the host makes a card
 run and a CPU run of one spec see the same draws.
 
-What this port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item (telemetry taps and run records, A.9; sharding over several
-cards, A.12); nothing is ignored silently.
+Telemetry (``repro_torch.obs``): the scan, batched and month engines run
+each dispatch under the spec's tap set (``ExperimentSpec.effective_taps``)
+and stream the ``engine/hour`` and ``game/nash_residual`` taps, the batched
+engine's rows through ``obs.tap_mod.vmap``. The loop engine, as the
+reference's, has no tap of its own; its stateful solver keeps the ambient
+set it was built under. ``record=`` appends a JSONL record
+(``obs.records``).
+
+Sharding the batched engine over several cards raises
+``NotImplementedError`` naming ROADMAP.md A.12; nothing is ignored silently.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import faults as FL
+from .. import obs
 from ..dcsim import env as E
 from . import game
 from . import schedulers as SCH
@@ -68,6 +76,10 @@ _TOTAL_KEYS = ("carbon_kg", "cost_usd", "sla_miss_cost_usd", "violation")
 # or guarded runs; unfaulted results never carry them
 _FAULT_KEYS = ("unserved_demand", "failover_moved", "degraded_sla_cost_usd",
                "fallback_hours")
+
+# per-hour physical signals streamed by the "engine/hour" tap
+_TAP_HOUR_KEYS = ("carbon_kg", "cost_usd", "sla_miss_cost_usd", "latency_ms",
+                  "grid_power_w")
 
 ENGINES = ("scan", "loop", "batched", "month")
 
@@ -83,6 +95,9 @@ class ExperimentSpec:
     row from ``seed``, day d's draws from ``seed + d``. ``failover`` is the
     realized-fault policy, consulted only when ``run`` gets ``faults=``;
     ``guard=True`` runs the finite-guard on an unfaulted run too.
+    ``taps`` opts the spec into telemetry streams (``repro_torch.obs`` tap
+    patterns, e.g. ``("engine/hour", "gt_drl/*")``); ``None`` defers to the
+    ambient ``obs.taps(...)`` context (default: everything off).
     """
     technique: str = "fd"
     objective: str = "carbon"
@@ -122,12 +137,42 @@ class ExperimentSpec:
     def replace(self, **changes) -> "ExperimentSpec":
         return dataclasses.replace(self, **changes)
 
+    def static_key(self) -> Tuple[str, str, int, Any, bool, str, bool, str]:
+        """The reference's compile-relevant fields, in its ``_day_core``
+        argument order: the engine key's core and the records' ``spec_key``."""
+        return (self.technique, self.objective, self.hours, self.cfg,
+                self.routed, self.failover, self.guard, self.workload)
 
-def _unported(spec: ExperimentSpec, record: Any) -> Optional[str]:
-    """What of ``spec`` (and ``run``'s options) this port does not run yet."""
-    if spec.taps or record:
-        return "telemetry taps and run records: ROADMAP.md A.9"
-    return None
+    def effective_taps(self) -> frozenset:
+        """The tap set this spec's engines run under: the spec's own
+        ``taps`` when given, else the ambient ``obs.taps(...)`` state."""
+        return obs.active_taps() if self.taps is None else frozenset(self.taps)
+
+
+def _engine_key(spec: ExperimentSpec, *, shard: bool = False, faulted: bool = False,
+                fault_axis: bool = False) -> tuple:
+    """The reference's engine key for this spec (the join key of
+    ``obs.engine_stat`` and run records): (kind, technique, objective,
+    hours, cfg, routed, failover, guard, workload, faulted, fault_axis,
+    taps). ``failover`` and ``fault_axis`` are normalized out of unfaulted
+    keys, as there."""
+    kind = {"scan": "day", "batched": "sharded" if shard else "batched",
+            "month": "month"}.get(spec.engine)
+    if kind is None:
+        raise ValueError(f"engine {spec.engine!r} is not compiled")
+    technique, objective, hours, cfg, routed, failover, guard, workload = spec.static_key()
+    if not faulted:
+        failover = FL.DEFAULT_POLICY
+        fault_axis = False
+    return (kind, technique, objective, hours, cfg, routed, failover, guard,
+            workload, faulted, fault_axis, spec.effective_taps())
+
+
+def _dispatch(spec: ExperimentSpec, shard: bool = False, faults=None):
+    """The obs dispatch span of one engine run: counted and timed under the
+    spec's key, run under the spec's tap set."""
+    return obs.spans.dispatch(_engine_key(spec, shard=shard, faulted=faults is not None,
+                                          fault_axis=_trace_stacked(faults)))
 
 
 def _generators(seed: int) -> Tuple[torch.Generator, torch.Generator]:
@@ -165,9 +210,10 @@ def _trace_stacked(faults) -> bool:
 
 def _execute(spec: ExperimentSpec, ctx: GameContext, fractions: torch.Tensor,
              peak: torch.Tensor, trace) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The hour after the plan: the finite-guard (faulted or ``guard=True``),
-    the feasible allocation, and the simulated epoch (on the realized env
-    under a trace)."""
+    """The hour after the plan: the Nash-residual tap, the finite-guard
+    (faulted or ``guard=True``), the feasible allocation, the simulated
+    epoch (on the realized env under a trace) and the ``engine/hour`` tap."""
+    game.tap_nash_residual(ctx, fractions, peak)
     guard = spec.guard or trace is not None
     if guard:
         fractions, fell_back = FL.guard_fractions(ctx.env, ctx.tau, fractions)
@@ -178,6 +224,8 @@ def _execute(spec: ExperimentSpec, ctx: GameContext, fractions: torch.Tensor,
         peak, m = FL.execute_hour(ctx.env, trace, peak, ar, ctx.tau, spec.failover)
     if guard:
         m = {**m, "fallback_hours": fell_back}
+    obs.tap("engine/hour", thunk=lambda: {
+        "tau": ctx.tau, **{k: m[k] for k in _TAP_HOUR_KEYS + _FAULT_KEYS if k in m}})
     return peak, m
 
 
@@ -222,8 +270,9 @@ def run(
     (batched only) runs the same batched program on the one visible card;
     several cards raise (ROADMAP.md A.12). ``faults`` (a ``FaultTrace``,
     or on the batched engine a stacked one, a row each) executes every hour
-    against the realized env under ``spec.failover``. ``record`` is not
-    ported yet (A.9).
+    against the realized env under ``spec.failover``. ``record`` (True, or
+    a JSONL path) appends a spec-keyed run record (``repro_torch.obs.records``;
+    ``runs/torch_records.jsonl`` by default).
 
     scan/loop return ``{"per_epoch": [row per hour], "totals": {...},
     "technique", "objective"}``, each row the hour's metrics as floats plus
@@ -233,11 +282,11 @@ def run(
     "final_peak_w", "days", ...}``.
     """
     game.get_technique(spec.technique)  # fails with the known names
-    missing = _unported(spec, record)
-    if missing:
-        raise NotImplementedError(f"the port does not run {missing}")
     if shard and spec.engine != "batched":
         raise ValueError(f"shard=True needs engine='batched', got {spec.engine!r}")
+    if shard and spec.effective_taps():
+        raise ValueError("the sharded engine streams no taps (as the reference's "
+                         "shard_map engine); run shard=False when tapping")
     if solver is not None and spec.engine != "loop":
         raise ValueError("a prebuilt solver closure needs engine='loop', "
                          f"got {spec.engine!r}")
@@ -257,24 +306,55 @@ def run(
                          f"got {spec.engine!r}; the scan/loop engines evaluate one "
                          "env against one trace")
     if spec.engine in ("scan", "loop"):
-        return _run_day(spec, envs, peak_state0, solver_state0, solver, faults)
-    if spec.engine == "batched":
-        return _run_batched(spec, envs, solver_state0, shard, faults)
-    return _run_month(spec, envs, peak_state0, solver_state0)
+        result = _run_day(spec, envs, peak_state0, solver_state0, solver, faults)
+    elif spec.engine == "batched":
+        result = _run_batched(spec, envs, solver_state0, shard, faults)
+    else:
+        result = _run_month(spec, envs, peak_state0, solver_state0)
+    if record:
+        _record_run(spec, result, record, shard=shard, faults=faults, device=_device_of(envs))
+    return result
+
+
+def _device_of(envs) -> torch.device:
+    """The device of one env, a list of envs (or ``(name, env)`` rows) or a
+    stacked EnvParams."""
+    first = envs if isinstance(envs, E.EnvParams) else envs[0]
+    return (first if isinstance(first, E.EnvParams) else first[1]).er.device
+
+
+def _record_run(spec: ExperimentSpec, result: Dict[str, Any], path: Any, *, shard: bool,
+                faults, device) -> str:
+    """Append one JSONL record of a finished ``run`` result (to ``path``, or
+    the default file when ``path`` is True)."""
+    engine_spans = (None if spec.engine == "loop"
+                    else obs.engine_stat(_engine_key(spec, shard=shard, faulted=faults is not None,
+                                                     fault_axis=_trace_stacked(faults))))
+    rec = obs.make_record(spec, result, engine_spans=engine_spans, device=device)
+    return obs.write_record(rec, path if isinstance(path, str) else None)
 
 
 def _run_day(spec, env, peak_state0, solver_state0, solver, faults):
     """The scan and loop engines: both step the registered technique from
-    the same carry, or the prebuilt ``solver`` (loop)."""
+    the same carry, or the prebuilt ``solver`` (loop). The scan day runs in
+    the obs dispatch span, its scheduler built under the spec's tap set; the
+    loop day has no tap of its own (its scheduler keeps the ambient set)."""
+    peak = (peak_state0 if peak_state0 is not None
+            else torch.zeros((E.num_dcs(env),), dtype=env.er.dtype, device=env.er.device))
     if solver is None:
         gen, state0 = _day_inputs(env, spec.technique, spec.objective, spec.seed,
                                   spec.pretrain, spec.cfg, solver_state0, spec.routed)
-        solver = SCH.StatefulScheduler(spec.technique, state0, spec.cfg).solve_epoch
     else:
         _, gen = _generators(spec.seed)
-    peak = (peak_state0 if peak_state0 is not None
-            else torch.zeros((E.num_dcs(env),), dtype=env.er.dtype, device=env.er.device))
-    _, keys, rows = _hours(spec, env, solver, gen, peak, faults)
+    if spec.engine == "scan":
+        with _dispatch(spec, faults=faults):
+            solver = SCH.StatefulScheduler(spec.technique, state0, spec.cfg).solve_epoch
+            _, keys, rows = _hours(spec, env, solver, gen, peak, faults)
+            return _format_day(keys, rows, spec.technique, spec.objective)
+    if solver is None:
+        solver = SCH.StatefulScheduler(spec.technique, state0, spec.cfg).solve_epoch
+    with obs.tracing(frozenset()):
+        _, keys, rows = _hours(spec, env, solver, gen, peak, faults)
     return _format_day(keys, rows, spec.technique, spec.objective)
 
 
@@ -343,25 +423,28 @@ def _run_batched(spec, envs, solver_state0, shard, faults=None):
     peak = torch.zeros((n, E.num_dcs(env0)), dtype=env0.er.dtype, device=dev)
     state, state_dim = state0, None  # the deployed state is shared until hour 0
     keys, rows = [], []
-    for tau in range(spec.hours):
-        draws = None
-        if draw is not None:
-            ctx0 = GameContext(env=env0, tau=tau, objective=spec.objective, routed=spec.routed)
-            draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in gens], dev)
+    with _dispatch(spec, shard, faults):
+        for tau in range(spec.hours):
+            draws = None
+            if draw is not None:
+                ctx0 = GameContext(env=env0, tau=tau, objective=spec.objective,
+                                   routed=spec.routed)
+                draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in gens], dev)
 
-        def hour(env, peak, state, draws, trace, tau=tau):
-            ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
-            state, res = compute(draws, state, ctx, peak, cfg)
-            peak, m = _execute(spec, ctx, res.fractions, peak, trace)
-            keys[:] = list(m)
-            return peak, state, torch.stack(list(m.values()))
+            def hour(env, peak, state, draws, trace, tau=tau):
+                ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
+                state, res = compute(draws, state, ctx, peak, cfg)
+                peak, m = _execute(spec, ctx, res.fractions, peak, trace)
+                keys[:] = list(m)
+                return peak, state, torch.stack(list(m.values()))
 
-        in_dims = (0, 0, state_dim, None if draws is None else 0, 0 if stacked else None)
-        peak, state, row = torch.func.vmap(hour, in_dims=in_dims)(env_b, peak, state, draws,
-                                                                  faults)
-        state_dim = 0
-        rows.append(row)
-    out = _by_key(keys, torch.stack(rows, dim=1))  # (n, hours) each
+            # the rows' live taps leave the vmap as outputs, a row each
+            in_dims = (0, 0, state_dim, None if draws is None else 0, 0 if stacked else None)
+            peak, state, row = obs.tap_mod.vmap(hour, in_dims=in_dims)(env_b, peak, state,
+                                                                       draws, faults)
+            state_dim = 0
+            rows.append(row)
+        out = _by_key(keys, torch.stack(rows, dim=1))  # (n, hours) each
     totals = {k: out[k].sum(axis=1) for k in _totals_keys(out)}
     return {"totals": totals, "per_epoch": out, "technique": spec.technique,
             "objective": spec.objective, "seeds": seeds}
@@ -377,21 +460,23 @@ def _run_month(spec, envs, peak_state0, solver_state0):
 
     _, state0 = _day_inputs(env0, spec.technique, spec.objective, spec.seed, spec.pretrain,
                             spec.cfg, solver_state0, spec.routed)
-    sched = SCH.StatefulScheduler(spec.technique, state0, spec.cfg)
     peak = (peak_state0 if peak_state0 is not None
             else torch.zeros((E.num_dcs(env0),), dtype=env0.er.dtype, device=env0.er.device))
     peaks, day_rows = [], []
-    for d in range(n):
-        env = E.EnvParams(*(x[d] for x in env_days))
-        _, gen = _generators(spec.seed + d)
-        peak, keys, rows = _hours(spec, env, sched.solve_epoch, gen, peak, None)
-        day_rows.append(torch.stack(rows))
-        peaks.append(peak)
-    per_day = _by_key(keys, torch.stack(day_rows))  # (days, hours) each
+    with _dispatch(spec):
+        sched = SCH.StatefulScheduler(spec.technique, state0, spec.cfg)
+        for d in range(n):
+            env = E.EnvParams(*(x[d] for x in env_days))
+            _, gen = _generators(spec.seed + d)
+            peak, keys, rows = _hours(spec, env, sched.solve_epoch, gen, peak, None)
+            day_rows.append(torch.stack(rows))
+            peaks.append(peak)
+        per_day = _by_key(keys, torch.stack(day_rows))  # (days, hours) each
+        peak_w, final_peak_w = torch.stack(peaks).cpu().numpy(), peak.cpu().numpy()
     day_totals = {k: per_day[k].sum(axis=1) for k in _TOTAL_KEYS}
     return {"per_day": per_day, "day_totals": day_totals,
             "totals": {k: float(day_totals[k].sum()) for k in _TOTAL_KEYS},
-            "peak_w": torch.stack(peaks).cpu().numpy(), "final_peak_w": peak.cpu().numpy(),
+            "peak_w": peak_w, "final_peak_w": final_peak_w,
             "days": n, "technique": spec.technique, "objective": spec.objective}
 
 
@@ -437,15 +522,14 @@ def sweep(
     ``max_retries`` times with backoff ``backoff_s * 2**k``;
     ``point_timeout_s`` bounds each chunk's wall time. The result then has
     a ``"resume"`` block (chunks restored and computed, retries,
-    stragglers). ``record`` is not ported yet (ROADMAP.md A.9).
+    stragglers). ``record`` (True, or a JSONL path) appends one record per
+    technique, each grid point's totals forming its curve along the labels.
 
     Returns ``{"points", "labels", "results": {technique: {"totals": {k:
     (P,)}, "per_epoch": {k: (P, hours)}}}, ...}``.
     """
     from .. import scenarios as S
 
-    if record:
-        raise NotImplementedError("the port does not run run records: ROADMAP.md A.9")
     base_env = base_env if base_env is not None else E.build_env(4, seed=0)
     points, rows = S.build_grid(base_env, grid, base=base_scenarios)
     labels = [lbl for lbl, _ in rows]
@@ -476,6 +560,23 @@ def sweep(
         for t in techniques:
             res = _run_batched(point_spec(t, n), env_b, None, shard, faults)
             results[t] = {"totals": res["totals"], "per_epoch": res["per_epoch"]}
+    if record:
+        for t in techniques:
+            # one record per technique: each grid point's daily totals form
+            # the "curve" along the sweep's label axis
+            pspec = point_spec(t, n)
+            rec = obs.make_record(
+                pspec, {**results[t], "technique": t, "objective": spec.objective},
+                kind="sweep",
+                curves={k: np.asarray(v, dtype=float).tolist()
+                        for k, v in results[t]["totals"].items()},
+                engine_spans=obs.engine_stat(_engine_key(
+                    pspec, shard=shard, faulted=faults is not None,
+                    fault_axis=_trace_stacked(faults))),
+                extra={"labels": labels,
+                       "grid": {name: list(pts) for name, pts in grid.items()}},
+                device=base_env.er.device)
+            obs.write_record(rec, record if isinstance(record, str) else None)
     out = {"grid": {name: list(pts) for name, pts in grid.items()},
            "points": points, "labels": labels, "results": results,
            "objective": spec.objective, "hours": spec.hours,

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..dcsim import env as E
 from ..dcsim import ties
 
@@ -149,6 +150,26 @@ def nash_residual(
     return torch.max(torch.stack(gains))
 
 
+def tap_nash_residual(
+    ctx: GameContext,
+    fractions: torch.Tensor,
+    peak_state: torch.Tensor,
+    probe_steps: int = 8,
+    lr: float = 0.5,
+) -> None:
+    """Telemetry hook: stream the Nash-residual diagnostic per epoch.
+
+    A no-op unless the ``"game/nash_residual"`` tap is live (see
+    ``repro_torch.obs``): the probe is |I| short gradient ascents, so it is
+    only computed then. ``probe_steps`` defaults lower than the offline
+    diagnostic: a per-epoch convergence signal, not a certificate.
+    """
+    obs.tap("game/nash_residual",
+            thunk=lambda: {"tau": ctx.tau,
+                           "residual": nash_residual(ctx, fractions, peak_state,
+                                                     probe_steps=probe_steps, lr=lr)})
+
+
 # ---------------------------------------------------------------------------
 # scheduler interface: every technique maps a GameContext to fractions
 # ---------------------------------------------------------------------------
@@ -244,8 +265,10 @@ def register_technique(
 
             def compute(draws, state, ctx, peak_state, cfg):
                 return state, solve_drawn(draws, ctx, peak_state, cfg)
-    if name in _TECHNIQUES and not overwrite:
-        raise KeyError(f"technique {name!r} already registered (overwrite=True rebinds)")
+    if name in _TECHNIQUES:
+        if not overwrite:
+            raise KeyError(f"technique {name!r} already registered (overwrite=True rebinds)")
+        obs.spans.note_eviction()  # the name's engine stats no longer describe it
     t = TechniqueDef(name, step, default_cfg, init_state or _stateless_init, stateful, draw,
                      compute)
     _TECHNIQUES[name] = t
@@ -253,8 +276,10 @@ def register_technique(
 
 
 def unregister_technique(name: str) -> None:
-    """Remove a registered technique (no error if it is not there)."""
-    _TECHNIQUES.pop(name, None)
+    """Remove a registered technique (no error if it is not there); the
+    engine stats count it as an eviction, as the reference's caches do."""
+    if _TECHNIQUES.pop(name, None) is not None:
+        obs.spans.note_eviction()
 
 
 def get_technique(name: str) -> TechniqueDef:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from .. import obs
 from ..dcsim import env as E
 from ..dcsim import ties
 from ..tree import tree_map
@@ -190,7 +191,11 @@ def _one_player_round(draws: PlayerDraws, agent: AgentState, env, tau, objective
     # episodes start around the current strategy with Dirichlet jitter
     fr = dirichlet(own[:, None, None] * 20.0 + 0.5, draws.state0)   # (n, iters, B, *row)
     state0 = _with_ctx(fr.reshape(fr.shape[:3] + (a,)), ctx)
-    agent, _ = ppo_improve(agent, state0, draws.eps, state_of, reward_of, ppo_cfg)
+    agent, info = ppo_improve(agent, state0, draws.eps, state_of, reward_of, ppo_cfg)
+    if obs.enabled("gt_drl/ppo"):
+        for j in range(n):  # an event per player, as the reference's vmapped tap
+            obs.tap("gt_drl/ppo", {"player": idx[j], "actor_loss": info["actor_loss"][j],
+                                   "mean_reward": info["mean_reward"][j]})
 
     # best response over the learned policy's support: greedy mean, the
     # incumbent and N_CAND samples; the player adopts the best proposal
@@ -304,6 +309,9 @@ def solve_drawn(draws: PlayerDraws, agents: AgentState, ctx: GameContext,
         better = ok & (val < best_val)
         best_joint = torch.where(better, joint, best_joint)
         best_val = torch.where(better, val, best_val)
+        if obs.enabled("gt_drl/round"):
+            obs.tap("gt_drl/round", {"value": val, "best": best_val,
+                                     "delta": torch.amax(torch.abs(joint - prev_joint))})
         vals.append(val)
     return agents, SolveResult(best_joint, {"round_values": torch.stack(vals), "best": best_val,
                                             "diverged_rounds": diverged})
@@ -373,7 +381,9 @@ def pretrain_step(agents: AgentState, draws: PretrainDraws, env: E.EnvParams, ob
     """Every player's round in each of the step's contexts, from the same
     agents, then parameter averaging (parallel SGD). The contexts are
     batched like the players (``vmap``, as the reference's ``jax.vmap``):
-    each is the env cut to its own hour."""
+    each is the env cut to its own hour. Live ``gt_drl/ppo`` taps stream
+    each context's players, as the reference's do: an engine pretrains
+    before its dispatch, so only an ambient tap set reaches here."""
     dev = env.er.device
     idx = torch.arange(E.num_players(env), device=dev)
     peak0 = torch.zeros((E.num_dcs(env),), device=dev)
@@ -382,7 +392,7 @@ def pretrain_step(agents: AgentState, draws: PretrainDraws, env: E.EnvParams, ob
     def one_ctx(env_c, joint_c, draws_c):
         return _run_players(draws_c, agents, idx, env_c, 0, objective, peak0, joint_c, cfg)[0]
 
-    return average_agents(vmap(one_ctx)(envs, draws.joints, draws.players))
+    return average_agents(obs.tap_mod.vmap(one_ctx)(envs, draws.joints, draws.players))
 
 
 def pretrain(

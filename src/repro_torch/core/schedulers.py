@@ -8,8 +8,8 @@ deployed agents thread from hour to hour.
 
 ``run_day``, ``run_day_scan``, ``run_days_batched`` and ``run_month`` are
 shims over ``ExperimentSpec``; ``compare_techniques`` is the paper's table
-protocol, on the batched engine by default. Run records (ROADMAP.md A.9) are
-not ported and raise.
+protocol, on the batched engine by default; ``record=`` writes one run
+record per technique (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..dcsim import env as E
 from . import ddpg, force_directed, game, genetic, gt_drl, nash, ppo_joint
 from .draws import generator
@@ -46,16 +47,22 @@ game.register_technique(
 
 class StatefulScheduler:
     """Stateful wrapper for the loop engine: holds the solver carry (e.g.
-    per-player agents) across epochs, advancing it each ``solve_epoch``."""
+    per-player agents) across epochs, advancing it each ``solve_epoch``.
+
+    The obs tap set active at construction is pinned for the scheduler's
+    lifetime (the ambient set on the loop engine, the spec's on the
+    engines that build it inside their dispatch), as in the reference."""
 
     def __init__(self, name: str, state0, cfg=None):
         t = game.get_technique(name)
         self.state = state0
         self._step = t.step
         self._cfg = t.resolve_cfg(cfg)
+        self._taps = obs.active_taps()
 
     def solve_epoch(self, gen, ctx: GameContext, peak_state) -> SolveResult:
-        self.state, res = self._step(gen, self.state, ctx, peak_state, self._cfg)
+        with obs.tracing(self._taps):
+            self.state, res = self._step(gen, self.state, ctx, peak_state, self._cfg)
         return res
 
 
@@ -200,14 +207,16 @@ def compare_techniques(envs, techniques=TECHNIQUES, objective: str = "carbon", *
     from that snapshot; env r's day runs with seed ``seed0 + r``, so the two
     engines agree within float32 summation order. ``cfg_overrides`` maps
     technique -> config.
+
+    ``record`` (True, or a JSONL path) appends one record per technique: the
+    ranked mean ± stderr, its mean curve, and the batched engine's dispatch
+    spans (``repro_torch.obs``).
     """
     if isinstance(envs, E.EnvParams):
         envs = [envs]
     envs = list(envs)
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown engine {engine!r}; known: batched, loop")
-    if record:
-        raise NotImplementedError("run records are not ported yet: ROADMAP.md A.9")
     overrides = dict(cfg_overrides or {})
     metric = "carbon_kg" if objective == "carbon" else "cost_usd"
     seeds = [seed0 + r for r in range(len(envs))]
@@ -235,4 +244,17 @@ def compare_techniques(envs, techniques=TECHNIQUES, objective: str = "carbon", *
             vals.append(res["totals"][metric])
             curves.append([e[metric] for e in res["per_epoch"]])
         out[t] = _stats(vals, curves)
+    if record:
+        from . import experiment as X
+        for t in techniques:
+            # one record a technique: the ranked mean ± stderr and mean curve
+            spec = X.ExperimentSpec(technique=t, objective=objective, engine=engine,
+                                    routed=routed, hours=hours, cfg=overrides.get(t))
+            spans = None if engine == "loop" else obs.engine_stat(X._engine_key(spec, shard=shard))
+            rec = obs.make_record(
+                spec, kind="compare", curves={metric: out[t]["curve_mean"]}, engine_spans=spans,
+                extra={"metric": metric, "mean": out[t]["mean"], "stderr": out[t]["stderr"],
+                       "runs": len(envs), "totals": {metric: out[t]["mean"]}},
+                device=envs[0].er.device)
+            obs.write_record(rec, record if isinstance(record, str) else None)
     return out

@@ -34,6 +34,8 @@ NVCC_FLAGS = (
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# head dims that only the fp32 (CUDA-core) paths take: 16, cfg.smoke()'s
+FP32_HEAD_DIMS = (16,)
 
 
 def nvcc() -> str:
@@ -131,7 +133,7 @@ def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int
     """Raise on what the attention kernels do not take: another device than
     one CUDA card, a dtype other than fp32 / bf16 (the same for all), a
     non-contiguous tensor, one not 16-byte aligned (the kernels load 16 bytes
-    a lane), or a head dim other than 32, 64 or 128."""
+    a lane), or a head dim other than 32, 64 or 128 (16 too in fp32)."""
     first = next(iter(tensors.values()))
     for arg, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
@@ -144,5 +146,8 @@ def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int
             raise ValueError(f"{name}: {arg} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} is not 16-byte aligned")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
+    if head_dim not in HEAD_DIMS and not (head_dim in FP32_HEAD_DIMS
+                                          and first.dtype == torch.float32):
+        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS} for {first.dtype} "
+                         f"({FP32_HEAD_DIMS} in float32 only); other head dims are "
+                         "ROADMAP.md B.1")

@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(NT) decode_combine_kernel(
     const float* __restrict__ m_part, const float* __restrict__ l_part,
     const float* __restrict__ acc_part, const int* __restrict__ lengths, T* __restrict__ o,
     int B, int S, int H, int KVH, int n_splits) {
-  constexpr int DL = D / 32;  // output columns per lane
+  constexpr int DL = (D + 31) / 32;  // output columns per lane (D = 16: lanes 0-15)
   const int wid = blockIdx.x * NW + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (wid >= B * H) return;
@@ -258,12 +258,15 @@ __global__ void __launch_bounds__(NT) decode_combine_kernel(
     const float wt = expf(m_part[p] - mx);
     sum = fmaf(wt, l_part[p], sum);
 #pragma unroll
-    for (int j = 0; j < DL; ++j) a[j] = fmaf(wt, acc_part[p * D + lane + 32 * j], a[j]);
+    for (int j = 0; j < DL; ++j)
+      if (D % 32 == 0 || lane + 32 * j < D)
+        a[j] = fmaf(wt, acc_part[p * D + lane + 32 * j], a[j]);
   }
   const float inv = 1.f / (sum == 0.f ? 1.f : sum);  // an empty sequence outputs zeros
 #pragma unroll
   for (int j = 0; j < DL; ++j)
-    o[static_cast<size_t>(wid) * D + lane + 32 * j] = from_f<T>(a[j] * inv);
+    if (D % 32 == 0 || lane + 32 * j < D)
+      o[static_cast<size_t>(wid) * D + lane + 32 * j] = from_f<T>(a[j] * inv);
 }
 
 template <typename T, int D>
@@ -319,6 +322,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     void* acc_part, int dtype, int B, int S, int H, int KVH,
                                     int D, float sm_scale, float softcap, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32 && D == 16)  // the smoke configs' head dim, fp32 only
+    return launch<float, 16>(q, k, v, lengths, o, m_part, l_part, acc_part, B, S, H, KVH,
+                             sm_scale, softcap, st);
   if (dtype == kFloat32)
     return dispatch_d<float>(D, q, k, v, lengths, o, m_part, l_part, acc_part, B, S, H, KVH,
                              sm_scale, softcap, st);

@@ -40,7 +40,9 @@
 //   kernel stands from one (cuDNN's) at the serving shape.
 // * fp32: CUDA-core FMAs from shared memory (64x64 tiles, 256 threads, each
 //   thread a 4x4 block of scores and a 4x(D/16) block of the output), kept
-//   because TF32 tensor cores would not hold the fp32 tolerance.
+//   because TF32 tensor cores would not hold the fp32 tolerance. It also
+//   takes D = 16, the head dim of the smoke configs (cfg.smoke()), which
+//   the bf16 kernel does not.
 //
 // Both keep the reference's finite NEG_INF, its tile-skip rule (with this
 // kernel's q tile), the "fully masked first tile gets p = 1 and is wiped by
@@ -550,6 +552,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    float softcap, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:  // the smoke configs' head dim: fp32 only (the mma path wants D >= 32)
+      if (dtype != kFloat32) return cudaErrorInvalidValue;
+      return launch_fp32<16>(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Skv,
+                             H, KVH, causal, window, q_offset, sm_scale, softcap, st);
     case 32:
       return launch_d<32>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
                           sm_scale, softcap, st);

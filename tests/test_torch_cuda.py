@@ -114,3 +114,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     lens = torch.ones((1,), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         tdecode.decode_attention(q[:, 0], k, k, lens)
+    # head dim 16 runs in fp32 only; bf16 at 16 is refused, never served plain
+    q = torch.zeros((1, 8, 4, 16), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="B.1"):
+        tflash.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="B.1"):
+        tdecode.decode_attention(q[:, 0], k, k, torch.ones((1,), dtype=torch.int32,
+                                                            device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_D16)
+def test_flash_kernel_head_dim_16_fp32(cuda, case):
+    test_flash_kernel_matches_plain(cuda, case, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES_D16)
+def test_decode_kernel_head_dim_16_fp32(cuda, case):
+    test_decode_kernel_matches_plain(cuda, case, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES_D16)
+def test_decode_kernel_head_dim_16_explicit_lengths(cuda, case):
+    test_decode_kernel_explicit_lengths(cuda, case, torch.float32)
+
+
+@pytest.mark.cuda
+def test_default_fleet_serves_on_the_card(cuda):
+    """``Fleet([arch], 2)`` at its defaults (cfg.smoke(): head dim 16, fp32)
+    serves through both kernels, its logits those of ``impl="ref"``."""
+    chip_smoke.fleet_smoke_phase(cuda)

@@ -12,7 +12,7 @@ Tolerances:
   engine's tolerances of ``tests/test_torch_experiment.py``, rtol 1e-5 each
   hour, violation within 1e-6 of the hour's Σ CAR;
 - the month's day totals and peaks against the reference: rtol 1e-5;
-- stochastic solvers (GA, DDPG, GT-DRL) batched over six seeds against JAX
+- stochastic solvers (GA, DDPG, joint PPO, GT-DRL) batched over six seeds against JAX
   batched: the port's mean within the JAX mean ± 3 combined standard errors
   (``jax.random`` cannot be reproduced); fd or the uniform split planted in
   a technique's place fails that check.
@@ -33,6 +33,7 @@ from repro.core import ddpg as JD
 from repro.core import force_directed as JFD
 from repro.core import genetic as JGA
 from repro.core import nash as JN
+from repro.core import ppo_joint as JPJ
 from repro.core import run as jax_run
 from repro.core import schedulers as JS
 from repro.dcsim import env as JE
@@ -85,6 +86,7 @@ FAST = {"fd": (JFD.FDConfig(iters=30), TFD.FDConfig(iters=30)),
                  TD.DDPGConfig(steps=24, batch=8, buffer=16, warmup=8, hidden=(16, 16))),
         "gt-drl": (H.FAST_GTDRL, H.FAST_T)}
 PPO = TPJ.JointPPOConfig(ppo=H.FAST_T.ppo)
+FAST["ppo"] = (JPJ.JointPPOConfig(ppo=H.FAST_GTDRL.ppo), PPO)
 
 
 def _hold_hours(got, want, keys, rtol=1e-5, sum_car=None):
@@ -142,7 +144,7 @@ def test_batched_stochastic_rows_equal_scan(technique):
     """Each row draws from its own seed's generator, stacked; the deployed
     state (gt-drl's fresh agents) is shared by every row: row r is the scan
     day of seed ``seeds[r]`` from that state."""
-    cfg = FAST[technique][1] if technique in FAST else PPO
+    cfg = FAST[technique][1]
     spec = ExperimentSpec(technique=technique, hours=2, routed=True, engine="batched",
                           cfg=cfg, seeds=(5, 7), pretrain=False)
     got = run(spec, T_ENVS[:2])
@@ -174,7 +176,7 @@ def _same_distribution(got, want):
     return abs(got.mean() - want.mean()) <= 3 * se
 
 
-@pytest.mark.parametrize("technique", ["ga", "ddpg", "gt-drl"])
+@pytest.mark.parametrize("technique", ["ga", "ddpg", "ppo", "gt-drl"])
 def test_batched_stochastic_solvers_match_jax_by_distribution(technique):
     """Two-hour days over six seeds on one env, each engine batched: the
     port's mean carbon within the JAX mean ± 3 combined standard errors."""
@@ -197,7 +199,7 @@ def _planted_carbon(plant):
 
 
 @pytest.mark.parametrize("plant", ["fd", "uniform"])
-@pytest.mark.parametrize("technique", ["ga", "ddpg", "gt-drl"])
+@pytest.mark.parametrize("technique", ["ga", "ddpg", "ppo", "gt-drl"])
 def test_distribution_check_rejects_a_planted_solver(technique, plant):
     """The check above fails when another solver stands in the technique's
     place: fd, or the uniform split."""

@@ -8,6 +8,8 @@ day under ``cost_sla`` on an SLA-priced env follows the reference's objective
 but not its allocation (``test_fd_day_cost_sla_holds_the_objective`` says why).
 """
 # ruff: noqa: E402
+import os
+
 import numpy as np
 import pytest
 
@@ -131,8 +133,16 @@ def test_prebuilt_solver_and_peak_state():
 
 @pytest.mark.parametrize("option,item", [(dict(taps=("engine/hour",)), "A.9")])
 def test_unported_spec_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run(ExperimentSpec(hours=1, **option), T_ENV)
+    """The spec option that an earlier slice refused naming ``item`` now
+    runs and streams its taps; what still raises is what the reference
+    refuses too: taps on the sharded batched engine."""
+    from repro_torch import obs
+    spec = ExperimentSpec(hours=1, **option)
+    with obs.capture() as buf:
+        run(spec, T_ENV)
+    assert buf.counts() == {"engine/hour": 1}
+    with pytest.raises(ValueError, match="shard"):
+        run(spec.replace(engine="batched"), [T_ENV], shard=True)
 
 
 @pytest.mark.parametrize("option,want", [
@@ -155,9 +165,18 @@ def test_ported_spec_options_match_jax(option, want):
 
 
 @pytest.mark.parametrize("option,item", [(dict(record=True), "A.9")])
-def test_unported_run_options_raise(option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run(ExperimentSpec(hours=1), T_ENV, **option)
+def test_unported_run_options_raise(option, item, tmp_path, monkeypatch):
+    """The run option that an earlier slice refused naming ``item`` now
+    writes a record (to the port's default file, here under ``tmp_path``);
+    the options' own checks still raise."""
+    from repro_torch import obs
+    monkeypatch.chdir(tmp_path)
+    run(ExperimentSpec(hours=1), T_ENV, **option)
+    recs = obs.load_records()
+    assert len(recs) == 1 and recs[0]["spec"]["hours"] == 1
+    assert os.path.exists(tmp_path / "runs" / "torch_records.jsonl")
+    with pytest.raises(ValueError, match="shard"):
+        run(ExperimentSpec(hours=1), T_ENV, shard=True, **option)
 
 
 @pytest.mark.parametrize("option", ["shard", "faults"])

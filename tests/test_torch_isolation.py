@@ -10,7 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 # the port, and what runs on a GPU machine that may have no JAX
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_attention.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_attention.py", ROOT / "count_launches.py",
+    ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -36,7 +37,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert int(res.stdout.strip()) >= 54  # every module of the port was imported
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py", "count_launches.py"])
 def test_card_scripts_exit_nonzero_without_a_card(script):
     """Without a CUDA device the scripts print no result and fail."""
     torch = pytest.importorskip("torch")
@@ -65,6 +66,21 @@ def test_solver_steps_read_nothing_back_from_the_device(path):
     src = path.read_text()
     for read in (".item(", ".tolist(", ".cpu(", ".numpy(", "synchronize("):
         assert read not in src, f"{path.relative_to(ROOT)} calls {read}"
+
+
+# telemetry: its taps keep device tensors, and one function of obs/tap.py
+# (``flush``) moves a run's values to the host after the run
+OBS_FILES = sorted((ROOT / "src" / "repro_torch" / "obs").glob("*.py"))
+
+
+def test_obs_reads_the_device_in_one_place():
+    """Of the telemetry modules only ``obs/tap.py`` reads back to the host,
+    once (``flush``); the solver files it taps read nothing back."""
+    readers = {p.name: [r for r in (".item(", ".cpu(", ".numpy(", "synchronize(")
+                        if r in p.read_text()] for p in OBS_FILES}
+    assert {n: r for n, r in readers.items() if r} == {"tap.py": [".cpu(", ".numpy("]}
+    assert (ROOT / "src" / "repro_torch" / "obs" / "tap.py") not in SOLVER_FILES
+    assert (ROOT / "src" / "repro_torch" / "obs" / "tap.py") in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

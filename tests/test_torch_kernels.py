@@ -163,6 +163,26 @@ def test_decode_split_plain_explicit_lengths(case, dtype, split):
     assert float((out[rows].float() - plain[rows].float()).abs().max()) < TOL[dtype]
 
 
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_D16)
+def test_flash_plain_head_dim_16_matches_jax(case):
+    """Head dim 16 (the smoke configs'), fp32: the cases the card holds its
+    fp32 kernel to, here the plain versions against Pallas and the oracle."""
+    test_flash_plain_matches_jax(case, "float32")
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES_D16)
+def test_decode_plain_head_dim_16_matches_jax(case, split):
+    test_decode_plain_matches_jax(case, "float32")
+    test_decode_split_plain_matches_jax(case, "float32", split)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES_D16)
+def test_decode_plain_head_dim_16_explicit_lengths(case, split):
+    test_decode_split_plain_explicit_lengths(case, "float32", split)
+
+
 def test_chip_smoke_holds_the_same_cases():
     """chip_smoke.py, which cannot import the JAX tests, keeps a copy of these cases."""
     assert chip_smoke.FLASH_CASES == FLASH_PARAMS

@@ -224,10 +224,10 @@ def test_compare_techniques_fd_nash_match_jax():
         assert abs(got[t]["stderr"] - want[t]["stderr"]) <= 1e-5 * abs(want[t]["mean"])
 
 
-def test_compare_techniques_ranks_the_six_and_deploys_once():
+def test_compare_techniques_ranks_the_six_and_deploys_once(tmp_path):
     """All six on the loop engine and on the default batched one; gt-drl is
     deployed once a comparison (one pretraining for both envs); the batched
-    and month shims run; ``record=`` raises naming A.9."""
+    and month shims run; ``record=`` writes a record a technique."""
     cfgs = {t: _fast(t) for t in technique_names()}
     calls = []
     deploy = TS.gt_drl.deploy
@@ -254,8 +254,13 @@ def test_compare_techniques_ranks_the_six_and_deploys_once():
     assert len(calls) == 2 and tuple(batched) == TS.TECHNIQUES
     for t in ("fd", "nash"):
         np.testing.assert_allclose(batched[t]["mean"], out[t]["mean"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        compare_techniques(T_ENVS, ("fd",), hours=1, engine="loop", record=True)
+    from repro_torch import obs
+    path = str(tmp_path / "compare.jsonl")
+    looped = compare_techniques(T_ENVS, ("fd",), hours=1, engine="loop", record=path,
+                                cfg_overrides=cfgs)
+    recs = obs.load_records(path)
+    assert len(recs) == 1 and recs[0]["kind"] == "compare" and recs[0]["runs"] == 2
+    assert recs[0]["mean"] == looped["fd"]["mean"] and recs[0]["spec"]["engine"] == "loop"
     days = TS.run_days_batched(T_ENVS, "fd", hours=1, cfg_override=cfgs["fd"])
     month = TS.run_month(T_ENVS, "fd", hours=1, cfg_override=cfgs["fd"])
     assert days["totals"]["cost_usd"].shape == (2,) and month["days"] == 2
