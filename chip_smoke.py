@@ -5,14 +5,19 @@
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (ignored by git), holds each kernel against its plain
-PyTorch version on the card (head dim 16 in fp32 too), times both, then
-serves llama3.2-1b at full width (16 layers, d_model 2048, bf16, random
-weights from seed 0) through ``ModelServer.generate`` and a two-data-center
+PyTorch version on the card (head dim 16 in fp32 too, 256 in both dtypes),
+times both (at llama3.2-1b's and recurrentgemma-9b's shapes), then serves
+llama3.2-1b at full width (16 layers, d_model 2048, bf16, random weights
+from seed 0) through ``ModelServer.generate`` and a two-data-center
 ``Fleet``, and checks that the serving path went through both kernels and
 that its logits and tokens are sane; ``[fleet-smoke]`` serves the default
-``Fleet`` (``cfg.smoke()``, head dim 16) the same way. Then it drives the
-scheduler path (``repro_torch.core``) on the paper's fleets built on the
-card:
+``Fleet`` (``cfg.smoke()``, head dim 16) the same way; ``[serve-arch]``
+serves qwen2-moe-a2.7b, recurrentgemma-9b (a prompt past its attention
+window), qwen2-7b and llama3.2-3b at full width, one at a time, the same
+way; ``[serve-fleet]`` runs the reference's examples/serve_fleet.py loop
+(GT-DRL's split to a dense, an MoE and a hybrid smoke server x 2 DCs). Then
+it drives the scheduler path (``repro_torch.core``) on the paper's fleets
+built on the card:
 
 - ``[gtdrl-step]`` / ``[gtdrl-profile]``: one GT-DRL half-update at D = 16
   on the card and on the host CPU from the same agents and draws (the card's
@@ -71,7 +76,9 @@ from repro_torch.dcsim import latency  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.configs.base import ATTN  # noqa: E402
 from repro_torch.launch.serve import Fleet, ModelServer, Request  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.train.step import decode_step, prefill_step  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -129,6 +136,32 @@ DECODE_CASES_D16 = [
     (2, 257, 8, 2, 16, 25.0),
 ]
 DECODE_LENGTH_CASES_D16 = [(3, 192, 8, 2, 16, 0.0, (192, 0, 65))]
+# head dim 256, fp32 and bf16: recurrentgemma-9b's (MQA, 16 query heads over
+# one kv head, window 2048), and GQA; a window shorter than Skv, Sq not a
+# multiple of 64, decode lengths on and one past a split's edge
+FLASH_CASES_D256 = [
+    (1, 200, 200, 16, 1, 256, True, 64, 0.0, 0),
+    (2, 128, 128, 4, 2, 256, True, 0, 0.0, 0),
+    (1, 96, 320, 8, 1, 256, True, 128, 30.0, 224),
+    (1, 100, 164, 4, 4, 256, False, 0, 0.0, 0),
+]
+DECODE_CASES_D256 = [
+    (2, 300, 16, 1, 256, 0.0),
+    (2, 257, 8, 2, 256, 25.0),
+]
+DECODE_LENGTH_CASES_D256 = [(4, 256, 16, 1, 256, 0.0, (0, 256, 64, 65))]
+# the archs this slice serves at full width, bf16, batch BATCH, MAX_NEW new
+# tokens: (arch, prompt, cache). recurrentgemma-9b's prompt outruns its
+# 2048-token window, so its prefill takes the windowed mask and the ring roll
+# and its decode writes the ring
+SERVE_ARCHS = [("qwen2-moe-a2.7b", 256, 1024), ("recurrentgemma-9b", 2304, 4096),
+               ("qwen2-7b", 256, 1024), ("llama3.2-3b", 256, 1024)]
+# qwen2-moe-a2.7b's fp32 copy (57 GB) does not fit beside its bf16 weights
+# (28.6 GB): its logits are held on a copy cut to this depth, widths whole
+MOE_LOGIT_LAYERS = 4
+# the reference's examples/serve_fleet.py: GT-DRL's split over build_env(4)
+# dispatched to a dense, an MoE and a hybrid arch (smoke widths) x 2 DCs
+FLEET_ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-9b"]
 # fp32: summation order only; bf16: one rounding of O(1) outputs (2^-8) plus order
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -282,10 +315,11 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def first_logits(params, cfg, batch, token, impl):
+def first_logits(params, cfg, batch, token, impl, cache_len=CACHE):
     """fp32 logits of the prefill and of the first decode step, one attention path."""
-    logits, cache = prefill_step(params, batch, cfg=cfg, cache_len=CACHE, impl=impl)
-    pos = torch.full((BATCH, 1), PROMPT, dtype=torch.int32, device=token.device)
+    logits, cache = prefill_step(params, batch, cfg=cfg, cache_len=cache_len, impl=impl)
+    b, s = batch["tokens"].shape
+    pos = torch.full((b, 1), s, dtype=torch.int32, device=token.device)
     dlogits, _ = decode_step(params, token, pos, cache, cfg=cfg, impl=impl)
     return {"prefill": logits.float(), "decode": dlogits.float()}
 
@@ -309,6 +343,7 @@ def profile_steps(srv, batch, token):
     decode step, from torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
+    b, s = batch["tokens"].shape
     cache = None
     out = {}
     for step in ("prefill", "decode"):
@@ -316,9 +351,9 @@ def profile_steps(srv, batch, token):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if step == "prefill":
-                _, cache = prefill_step(srv.params, batch, cfg=srv.cfg, cache_len=CACHE)
+                _, cache = prefill_step(srv.params, batch, cfg=srv.cfg, cache_len=srv.cache_len)
             else:
-                pos = torch.full((BATCH, 1), PROMPT, dtype=torch.int32, device=token.device)
+                pos = torch.full((b, 1), s, dtype=torch.int32, device=token.device)
                 decode_step(srv.params, token, pos, cache, cfg=srv.cfg)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -384,7 +419,8 @@ def main() -> int:
         if not err < TOL[dtype]:
             fail(f"{what} {dtype}: max err {err} >= {TOL[dtype]}")
 
-    cases = [(dtype, FLASH_CASES, DECODE_CASES, DECODE_LENGTH_CASES)
+    cases = [(dtype, FLASH_CASES + FLASH_CASES_D256, DECODE_CASES + DECODE_CASES_D256,
+              DECODE_LENGTH_CASES + DECODE_LENGTH_CASES_D256)
              for dtype in (torch.float32, torch.bfloat16)]
     cases.append((torch.float32, FLASH_CASES_D16, DECODE_CASES_D16, DECODE_LENGTH_CASES_D16))
     for dtype, flash_cases, decode_cases, decode_length_cases in cases:
@@ -419,6 +455,7 @@ def main() -> int:
     phase("kernels-cases", flash=len(FLASH_CASES) * 2, decode=len(DECODE_CASES) * 2,
           decode_lengths=len(DECODE_LENGTH_CASES) * 2,
           d16_fp32=len(FLASH_CASES_D16 + DECODE_CASES_D16 + DECODE_LENGTH_CASES_D16),
+          d256=len(FLASH_CASES_D256 + DECODE_CASES_D256 + DECODE_LENGTH_CASES_D256) * 2,
           tol_fp32=TOL[torch.float32],
           tol_bf16=TOL[torch.bfloat16], result="within")
 
@@ -504,6 +541,7 @@ def main() -> int:
           f"{lens.tolist()} bf16", bytes=nbytes, flops=flops, **records["decode_attention"],
           split=dec_mod.SPLIT, ms_cold_l2=time_ms(kernel, iters=100, flush=flush),
           library_ms_cold_l2=time_ms(library, iters=100, flush=flush))
+    kernels_at_d256(randn, records, flush)
     del flush
 
     # -- 4. serving: the main path ----------------------------------------
@@ -532,6 +570,7 @@ def main() -> int:
             fail(f"request {uid}: tokens {toks}")
     for name, n in launches.items():
         records[name]["launches"] = n
+        records[name]["launches_by_path"] = {f"serve {ARCH}": n}
     phase("serve", requests=len(outs), prompt=PROMPT, new=MAX_NEW,
           prefill_ms=f"{srv.stats['prefill_s'] * 1e3:.2f}",
           decode_tok_s=f"{srv.tokens_per_second():.1f}",
@@ -543,35 +582,7 @@ def main() -> int:
     # further from the fp32 logits than twice the plain bf16 path is
     batch = srv._batchify(reqs)
     token = torch.from_numpy(rng.integers(1, cfg.vocab_size, (BATCH, 1)).astype(np.int32)).to(dev)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = tree_map(lambda t: t.float(), srv.params)
-    runs = {("bf16", impl): first_logits(srv.params, cfg, batch, token, impl)
-            for impl in ("auto", "ref")}
-    runs.update({("fp32", impl): first_logits(params32, cfg32, batch, token, impl)
-                 for impl in ("auto", "ref")})
-    del params32
-    for step in ("prefill", "decode"):
-        for key, out in runs.items():
-            if tuple(out[step].shape) != (BATCH, 1, cfg.vocab_size):
-                fail(f"{step} logits {key} of shape {tuple(out[step].shape)}")
-            if not torch.isfinite(out[step]).all():
-                fail(f"{step} logits {key} not finite")
-        truth = runs["fp32", "ref"][step]
-        fp32 = rel_norm(runs["fp32", "auto"][step], truth)
-        fp32_abs = max_err(runs["fp32", "auto"][step], truth)
-        kern, plain = (rel_norm(runs["bf16", impl][step], truth) for impl in ("auto", "ref"))
-        direct = rel_norm(runs["bf16", "auto"][step], runs["bf16", "ref"][step])
-        if not (fp32 <= FP32_LOGIT_RTOL and fp32_abs <= FP32_LOGIT_ATOL):
-            fail(f"{step} fp32 logits: kernel vs ref relative norm {fp32}, max |diff| {fp32_abs}")
-        if not kern <= BF16_LOGIT_FACTOR * plain:
-            fail(f"{step} bf16 logits: kernel path {kern} from the fp32 logits, plain path {plain}")
-        agree = float((runs["bf16", "auto"][step].argmax(-1)
-                       == runs["bf16", "ref"][step].argmax(-1)).float().mean())
-        phase("serve-logits", step=step, fp32_rel_norm=f"{fp32:.3g}",
-              fp32_max_abs=f"{fp32_abs:.3g}", bf16_kernel_vs_fp32=f"{kern:.4g}",
-              bf16_plain_vs_fp32=f"{plain:.4g}", bf16_kernel_vs_plain=f"{direct:.4g}",
-              bf16_argmax_agree=agree, logit_absmax=f"{float(truth.abs().max()):.3g}")
-    del runs
+    hold_logits("serve-logits", srv.params, cfg, batch, token, CACHE)
 
     # where the time of one prefill and one decode step goes on the card
     for step, fn in profile_steps(srv, batch, token).items():
@@ -594,17 +605,292 @@ def main() -> int:
     del fleet
     fleet_smoke_phase(dev)
 
+    # -- 5b. the MoE, hybrid and larger dense archs, and the paper's fleet --
+    serve_arch_phase(dev, records)
+    serve_fleet_phase(dev, records)
+
     # -- 6. the scheduler path: fleet env, game, simulator ----------------
     sched_phases(dev)
 
     phase("done", seconds=f"{time.perf_counter() - T_START:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path", "d256")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def moe_routes(fn):
+    """(fn(), the experts every MoE layer it runs selects, each (T, k) sorted)."""
+    seen = []
+    route = moe_mod._route
+
+    def recording(p, cfg, x2d):
+        out = route(p, cfg, x2d)
+        seen.append(torch.sort(out[1], dim=-1).values)
+        return out
+
+    moe_mod._route = recording
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._route = route
+
+
+def hold_logits(tag: str, params, cfg, batch, token, cache_len: int, **fields) -> None:
+    """First-step logits of the kernel path against impl="ref": in fp32 the two
+    must agree to summation order; in bf16 the kernel path must be no further
+    from the fp32 logits than twice the plain bf16 path is. For an MoE, the
+    share of (token, choice) routes the two bf16 paths agree on."""
+    b = batch["tokens"].shape[0]
+    runs, routes = {}, {}
+    for impl in ("auto", "ref"):
+        runs["bf16", impl], routes[impl] = moe_routes(
+            lambda: first_logits(params, cfg, batch, token, impl, cache_len))
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    runs.update({("fp32", impl): first_logits(params32, cfg32, batch, token, impl, cache_len)
+                 for impl in ("auto", "ref")})
+    del params32
+    if routes["auto"]:
+        got, want = (torch.cat([r.reshape(-1) for r in routes[i]]) for i in ("auto", "ref"))
+        fields["moe_routes"] = got.numel()
+        fields["moe_route_agree_bf16"] = f"{float((got == want).float().mean()):.5f}"
+    for step in ("prefill", "decode"):
+        for key, out in runs.items():
+            if tuple(out[step].shape) != (b, 1, cfg.vocab_size):
+                fail(f"{tag} {step} logits {key} of shape {tuple(out[step].shape)}")
+            if not torch.isfinite(out[step]).all():
+                fail(f"{tag} {step} logits {key} not finite")
+        truth = runs["fp32", "ref"][step]
+        fp32 = rel_norm(runs["fp32", "auto"][step], truth)
+        fp32_abs = max_err(runs["fp32", "auto"][step], truth)
+        kern, plain = (rel_norm(runs["bf16", impl][step], truth) for impl in ("auto", "ref"))
+        direct = rel_norm(runs["bf16", "auto"][step], runs["bf16", "ref"][step])
+        if not (fp32 <= FP32_LOGIT_RTOL and fp32_abs <= FP32_LOGIT_ATOL):
+            fail(f"{tag} {step} fp32 logits: kernel vs ref relative norm {fp32}, "
+                 f"max |diff| {fp32_abs}")
+        if not kern <= BF16_LOGIT_FACTOR * plain:
+            fail(f"{tag} {step} bf16 logits: kernel path {kern} from the fp32 logits, "
+                 f"plain path {plain}")
+        agree = float((runs["bf16", "auto"][step].argmax(-1)
+                       == runs["bf16", "ref"][step].argmax(-1)).float().mean())
+        phase(tag, **fields, step=step, fp32_rel_norm=f"{fp32:.3g}",
+              fp32_max_abs=f"{fp32_abs:.3g}", bf16_kernel_vs_fp32=f"{kern:.4g}",
+              bf16_plain_vs_fp32=f"{plain:.4g}", bf16_kernel_vs_plain=f"{direct:.4g}",
+              bf16_argmax_agree=agree, logit_absmax=f"{float(truth.abs().max()):.3g}")
+
+
+def kernels_at_d256(randn, records: dict, flush: torch.Tensor) -> None:
+    """Both kernels at recurrentgemma-9b's serving shapes (head dim 256, MQA):
+    prefill over a 2304-token prompt under its 2048-token window, and decode
+    over the full 2048-slot ring. Times warm and L2-flushed, against the
+    bound, the plain version and the library call (the kv head expanded)."""
+    F = torch.nn.functional
+    cfg = get_config("recurrentgemma-9b")
+    h, kvh, d, window, bf16 = cfg.num_heads, cfg.num_kv_heads, cfg.hd(), cfg.attn_window, \
+        torch.bfloat16
+    _, s, _ = next(a for a in SERVE_ARCHS if a[0] == cfg.name)
+    q, k, v = (randn(BATCH, s, n, d, dtype=bf16) for n in (h, kvh, kvh))
+    kw = dict(causal=True, window=window)
+    kernel = lambda: flash_mod.flash_attention(q, k, v, **kw)
+    out = kernel()
+    err = max_err(out, ref.attention_ref(q, k, v, **kw))
+    if not err < TOL[bf16]:
+        fail(f"flash_attention at recurrentgemma's shape: max err {err}")
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    flops = 4 * BATCH * h * d * attn_pairs(s, s, True, window, 0)
+    bound_ms, bound_by = bound(nbytes, flops)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).expand(BATCH, h, s, d).contiguous() for t in (k, v))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    rec = dict(shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal window {window}",
+               max_abs_err=err, ms=time_ms(kernel),
+               plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, **kw), iters=5),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(library),
+               ms_cold_l2=time_ms(kernel, flush=flush),
+               library_ms_cold_l2=time_ms(library, flush=flush))
+    records["flash_attention"]["d256"] = rec
+    phase("kernel", head_dim=d, bytes=nbytes, flops=flops, **rec,
+          library_kernels=library_kernels(library))
+    del q, k, v, out, kt, vt, qt, mask
+
+    cache = min(next(a for a in SERVE_ARCHS if a[0] == cfg.name)[2], window)
+    q = randn(BATCH, h, d, dtype=bf16)
+    kc, vc = randn(BATCH, cache, kvh, d, dtype=bf16), randn(BATCH, cache, kvh, d, dtype=bf16)
+    lens = torch.full((BATCH,), cache, dtype=torch.int32, device=q.device)
+    kernel = lambda: dec_mod.decode_attention(q, kc, vc, lens)
+    out = kernel()
+    err = max_err(out, ref.decode_attention_ref(q, kc, vc, lens))
+    if not err < TOL[bf16]:
+        fail(f"decode_attention at recurrentgemma's shape: max err {err}")
+    valid = int(lens.sum())
+    nbytes = 2 * (q.numel() + out.numel()) + 2 * 2 * valid * kvh * d + 4 * BATCH
+    bound_ms, bound_by = bound(nbytes, 4 * h * d * valid)
+    kmask = (torch.arange(cache, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=kmask,
+                                                     enable_gqa=True)
+    rec = dict(shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} lengths {cache} bf16",
+               max_abs_err=err, ms=time_ms(kernel, iters=100),
+               plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens), iters=100),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(library, iters=100),
+               ms_cold_l2=time_ms(kernel, iters=100, flush=flush),
+               library_ms_cold_l2=time_ms(library, iters=100, flush=flush))
+    records["decode_attention"]["d256"] = rec
+    phase("kernel", head_dim=d, bytes=nbytes, flops=4 * h * d * valid, **rec,
+          library_kernels=library_kernels(library))
+
+
+def attn_layers(cfg) -> int:
+    return cfg.pattern().count(ATTN)
+
+
+def serve_arch_phase(dev: torch.device, records: dict) -> None:
+    """Each of SERVE_ARCHS at full width through ``ModelServer.generate``, one
+    server at a time: launches held exactly (one flash launch per attention
+    layer, one decode launch per attention layer and step), the tokens sane,
+    the first-step logits held as [serve-logits] holds them; the MoE's and
+    the hybrid's prefill and decode step profiled."""
+    for arch, prompt, cache_len in SERVE_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        srv = ModelServer(cfg, batch_size=BATCH, cache_len=cache_len, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size, prompt).astype(np.int32))
+                   for _ in range(BATCH)]
+        reqs = [Request(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+        srv.generate([Request(0, prompts[0], 2)])  # warm-up
+        srv.stats = {"requests": 0, "tokens": 0, "decode_s": 0.0, "prefill_s": 0.0}
+        torch.cuda.reset_peak_memory_stats()
+        flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+        outs = srv.generate(reqs)
+        launches = {"flash_attention": flash_mod.KERNEL.launches,
+                    "decode_attention": dec_mod.KERNEL.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_attn = attn_layers(cfg)
+        want = {"flash_attention": n_attn, "decode_attention": n_attn * (MAX_NEW - 1)}
+        if launches != want:
+            fail(f"serve-arch {arch}: launches {launches}, expected {want}")
+        for uid, toks in outs.items():
+            if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+                fail(f"serve-arch {arch} request {uid}: tokens {toks}")
+        for name, n in launches.items():
+            records[name]["launches_by_path"][f"serve-arch {arch}"] = n
+        window = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
+        phase("serve-arch", arch=arch, layers=cfg.num_layers, attn_layers=n_attn,
+              head_dim=cfg.hd(), heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+              params=sum(t.numel() for t in tree_leaves(srv.params)), init_s=f"{init_s:.2f}",
+              batch=BATCH, prompt=prompt, new=MAX_NEW, cache=cache_len, attn_cache_slots=window,
+              ring_roll=prompt >= window, prefill_ms=f"{srv.stats['prefill_s'] * 1e3:.2f}",
+              decode_ms_per_step=f"{srv.stats['decode_s'] * 1e3 / (MAX_NEW - 1):.2f}",
+              decode_tok_s=f"{srv.tokens_per_second():.1f}", peak_gib=f"{peak_gib:.2f}",
+              launches=launches, first_tokens=outs[0][:8])
+        batch = srv._batchify(reqs)
+        token = torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, (BATCH, 1)).astype(np.int32)).to(dev)
+        params, lcfg, fields = srv.params, cfg, {"arch": arch}
+        if cfg.num_experts:
+            lcfg = dataclasses.replace(cfg, num_layers=MOE_LOGIT_LAYERS)
+            params = {**srv.params, "stack": {"layers": srv.params["stack"]["layers"][
+                :MOE_LOGIT_LAYERS]}}
+            fields["layers"] = (f"{MOE_LOGIT_LAYERS}_of_{cfg.num_layers}_(depth_cut:_no_fp32_"
+                                "copy_of_all_layers_fits_beside_the_bf16_weights)")
+        hold_logits("serve-arch-logits", params, lcfg, batch, token, cache_len, **fields)
+        del params
+        if cfg.num_experts or cfg.block_pattern:  # the MoE's and the hybrid's
+            for step, fn in profile_steps(srv, batch, token).items():
+                phase("serve-profile", arch=arch, step=step, **fn)
+        del srv, batch
+        torch.cuda.empty_cache()
+
+
+def serve_fleet_phase(dev: torch.device, records: dict | None = None) -> None:
+    """The reference's examples/serve_fleet.py on the card: GT-DRL's split of
+    the hour over build_env(4), dispatched to FLEET_ARCHS x 2 DCs (smoke
+    widths; recurrentgemma's window of 8 is shorter than the 12-token
+    prompts, so its ring rolls); launches held exactly, and the first-step
+    logits of every server of the fleet, dispatched or not, held against
+    impl="ref" at the fp32 tolerance.
+
+    The same solve (same generators) also runs on the host CPU, and the two
+    plans' hour costs, both priced on the CPU, are held at GTDRL_COST_RTOL.
+    The split is reported, not held: at hour 14 the game sends all of each
+    task type to DC 2, and DCs 0 and 1, the example's split, keep only the
+    softmax's tail (~1e-11 of a row), far below what the cost resolves in
+    float32, so its shares, and the dispatch rounded from them, differ
+    between two devices (PERF.md §6, PR 17)."""
+    cpu = torch.device("cpu")
+    cfg = gt_drl.GTDRLConfig(rounds=2, pretrain_iters=0)
+    ctx, frac, gtdrl_ms = {}, {}, {}
+    for d in (dev, cpu):
+        ctx[d] = game.GameContext(env=sched_env.build_env(4, seed=0, device=d), tau=14,
+                                  objective="cost")
+        t0 = time.perf_counter()
+        agents = gt_drl.init_agents(generator(0), ctx[d].env, cfg)
+        _, res = gt_drl.solve_epoch(generator(1), agents, ctx[d], torch.zeros(4, device=d), cfg)
+        frac[d] = res.fractions
+        sync(d)
+        gtdrl_ms[d] = (time.perf_counter() - t0) * 1e3
+    split = game.fractions_to_ar(ctx[dev], frac[dev])[:len(FLEET_ARCHS), :2].cpu().numpy()
+    cpu_split = game.fractions_to_ar(ctx[cpu], frac[cpu])[:len(FLEET_ARCHS), :2].numpy()
+    cost = {d: float(game.cloud_objective(ctx[cpu], frac[d].cpu(), torch.zeros(4)))
+            for d in (dev, cpu)}
+    cost_rel = abs(cost[dev] / cost[cpu] - 1)
+    if not (np.isfinite(split).all() and split.sum() > 0 and cost_rel <= GTDRL_COST_RTOL):
+        fail(f"serve-fleet: GT-DRL split {split.tolist()}, hour cost card {cost[dev]} "
+             f"against CPU {cost[cpu]}")
+    fleet = Fleet(FLEET_ARCHS, 2, smoke=True, batch_size=4, cache_len=64)
+    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+    report = fleet.route(split, requests_per_unit=2, prompt_len=12, max_new=4)
+    launches = {"flash_attention": flash_mod.KERNEL.launches,
+                "decode_attention": dec_mod.KERNEL.launches}
+    n_attn = sum(attn_layers(fleet.servers[key].cfg) for key in report["dispatched"])
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * 3}
+    if report["total"] == 0 or launches != want:
+        fail(f"serve-fleet dispatched {report['dispatched']}: launches {launches}, "
+             f"expected {want}")
+    if records is not None:
+        for name, n in launches.items():
+            records[name]["launches_by_path"]["serve-fleet"] = n
+    rng = np.random.default_rng(2)
+    worst = {"prefill": 0.0, "decode": 0.0}
+    for key, srv in fleet.servers.items():  # the dispatched ones and the rest
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(1, srv.cfg.vocab_size, (srv.batch_size, 12)).astype(np.int32)).to(dev)}
+        token = torch.from_numpy(
+            rng.integers(1, srv.cfg.vocab_size, (srv.batch_size, 1)).astype(np.int32)).to(dev)
+        out = {impl: first_logits(srv.params, srv.cfg, batch, token, impl, srv.cache_len)
+               for impl in ("auto", "ref")}
+        for step in worst:
+            got, want_ = out["auto"][step], out["ref"][step]
+            rel, err = rel_norm(got, want_), max_err(got, want_)
+            if not (torch.isfinite(got).all() and rel <= FP32_LOGIT_RTOL
+                    and err <= FP32_LOGIT_ATOL):
+                fail(f"serve-fleet {key} {step} logits: kernel vs ref relative norm {rel}, "
+                     f"max |diff| {err}")
+            worst[step] = max(worst[step], rel)
+    phase("serve-fleet", archs=",".join(FLEET_ARCHS), num_dcs=2,
+          gtdrl_split=[[f"{x:.4g}" for x in row] for row in split],
+          cpu_split=[[f"{x:.4g}" for x in row] for row in cpu_split],
+          split_fraction_of_rows=f"{float(frac[dev][:, :2].sum(-1).max()):.3g}",
+          fractions_max_abs_diff=f"{float((frac[dev].cpu() - frac[cpu]).abs().max()):.3g}",
+          hour_cost_card=cost[dev], hour_cost_cpu=cost[cpu], hour_cost_rel_diff=f"{cost_rel:.3g}",
+          gtdrl_ms=f"{gtdrl_ms[dev]:.1f}", gtdrl_cpu_ms=f"{gtdrl_ms[cpu]:.1f}",
+          dispatched={f"{FLEET_ARCHS[i]}@dc{d}": n for (i, d), n in report["dispatched"].items()},
+          total=report["total"], launches=launches,
+          tok_s={f"{FLEET_ARCHS[i]}@dc{d}": f"{v:.1f}"
+                 for (i, d), v in report["per_server_tps"].items()},
+          servers_held=len(fleet.servers), prefill_rel_norm_max=f"{worst['prefill']:.3g}",
+          decode_rel_norm_max=f"{worst['decode']:.3g}",
+          tol=f"rel norm {FP32_LOGIT_RTOL}, abs {FP32_LOGIT_ATOL}; hour cost "
+          f"{GTDRL_COST_RTOL}")
 
 
 def fleet_smoke_phase(dev: torch.device) -> None:

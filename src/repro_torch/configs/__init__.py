@@ -1,6 +1,8 @@
 """Architecture registry of the port.
 
-llama3.2-1b is served (``launch/serve.py``). The other configs are here for
+The dense, MoE and hybrid language models are served (``launch/serve.py``):
+llama3.2-1b, llama3.2-3b, qwen2-7b, qwen2-moe-a2.7b and recurrentgemma-9b.
+whisper-base, mistral-large-123b and arctic-480b are here for
 ``dcsim.capability``'s ``llm`` workload, which sizes its families with
 ``ModelConfig.param_count``; ``models.model.init`` rejects what the model code
 does not run yet (``transformer.check_supported``).
@@ -18,6 +20,8 @@ _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "arctic-480b": "arctic_480b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "llama3.2-3b": "llama3_2_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -3,8 +3,10 @@
 The caller turns the JAX pytree into numpy arrays first
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module imports no
 JAX. Dense weights keep their (d_in, d_out) layout, since the port applies
-them as ``x @ w`` too. The scanned ``stack/layers`` subtree, whose leaves
-carry a leading ``num_layers`` axis, becomes a list of per-layer dicts.
+them as ``x @ w`` too. The stack becomes a list of per-layer dicts, from the
+scanned ``stack/layers`` subtree of a uniform stack (leaves with a leading
+``num_layers`` axis, stacked MoE experts included) or from the unrolled
+``stack/blocks/{"0", "1", ...}`` of a hybrid one.
 ``env_from_numpy`` carries an ``EnvParams`` across, so that both packages can
 be held on the same env, including one the JAX package's scenario transforms
 made. ``agents_from_jax`` and ``tree_from_jax`` carry the learning solvers'
@@ -36,23 +38,32 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """Port parameters, on ``device``, from a numpy copy of ``repro.models.model.init(...)``'s
     tree. They go to the card unless the caller asks for the CPU."""
     device = resolve_device(device)
-    if set(tree) != {"embed", "stack", "final_norm"} or "layers" not in tree["stack"]:
-        raise ValueError("expected a tied-embedding, scanned-layer parameter tree, got "
-                         f"keys {sorted(tree)} / stack {sorted(tree.get('stack', {}))}")
-    layers = tree["stack"]["layers"]
+    stack = tree.get("stack", {})
+    top = {"embed", "stack", "final_norm"} | ({"head"} if "head" in tree else set())
+    blocks = [str(i) for i in range(cfg.num_layers)]
+    if (set(tree) != top or set(stack) not in ({"layers"}, {"blocks"})
+            or ("blocks" in stack and sorted(stack["blocks"]) != sorted(blocks))):
+        raise ValueError("expected a decoder parameter tree of embed, stack (scanned layers or "
+                         f"blocks '0'..'{cfg.num_layers - 1}'), final_norm and an optional "
+                         f"head, got keys {sorted(tree)} / stack {sorted(stack)}")
 
-    def check_depth(a):
-        if np.shape(a)[0] != cfg.num_layers:
-            raise ValueError(f"stacked leaf of shape {np.shape(a)} has no leading "
-                             f"num_layers={cfg.num_layers} axis")
+    def torch_tree(t):
+        return tree_map(lambda a: _to_torch(a, device), t)
 
-    tree_map(check_depth, layers)
-    return {
-        "embed": tree_map(lambda a: _to_torch(a, device), tree["embed"]),
-        "stack": {"layers": [tree_map(lambda a, i=i: _to_torch(a[i], device), layers)
-                             for i in range(cfg.num_layers)]},
-        "final_norm": tree_map(lambda a: _to_torch(a, device), tree["final_norm"]),
-    }
+    if "blocks" in stack:
+        layers = [torch_tree(stack["blocks"][i]) for i in blocks]
+    else:
+        def check_depth(a):
+            if np.shape(a)[0] != cfg.num_layers:
+                raise ValueError(f"stacked leaf of shape {np.shape(a)} has no leading "
+                                 f"num_layers={cfg.num_layers} axis")
+
+        tree_map(check_depth, stack["layers"])
+        layers = [tree_map(lambda a, i=i: _to_torch(a[i], device), stack["layers"])
+                  for i in range(cfg.num_layers)]
+    out = {name: torch_tree(tree[name]) for name in sorted(top - {"stack"})}
+    out["stack"] = {"layers": layers}
+    return out
 
 
 def env_from_numpy(fields: Dict[str, np.ndarray], device="cuda"):

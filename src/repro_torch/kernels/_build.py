@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # head dims that only the fp32 (CUDA-core) paths take: 16, cfg.smoke()'s
 FP32_HEAD_DIMS = (16,)
 
@@ -133,7 +133,7 @@ def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int
     """Raise on what the attention kernels do not take: another device than
     one CUDA card, a dtype other than fp32 / bf16 (the same for all), a
     non-contiguous tensor, one not 16-byte aligned (the kernels load 16 bytes
-    a lane), or a head dim other than 32, 64 or 128 (16 too in fp32)."""
+    a lane), or a head dim other than 32, 64, 128 or 256 (16 too in fp32)."""
     first = next(iter(tensors.values()))
     for arg, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:

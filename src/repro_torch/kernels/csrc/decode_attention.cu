@@ -25,7 +25,9 @@
 //   on 132 SMs. Each lane loads 16 bytes of a key row at a time (8 bf16 or 4
 //   fp32; neighbouring lanes on neighbouring addresses), all of its loads
 //   issued before the first is used, with the query group's matching slice in
-//   registers. Each lane keeps an online softmax over the keys it sees;
+//   registers. A row wider than a warp's 32 loads (fp32 at D = 256) gives
+//   each lane two slices of it, 32 loads apart, and half as many rows in
+//   flight. Each lane keeps an online softmax over the keys it sees;
 //   the lanes of a warp merge theirs with shuffles, and the four warps merge
 //   through shared memory once, at the end. Keys at or past the length are
 //   not read: their scores are NEG_INF and their V rows zero.
@@ -71,13 +73,17 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     const int* __restrict__ lengths, float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int S, int H, int KVH, int n_splits, float sm_scale,
     float softcap) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LPR = D / VEC;         // lanes per key row
-  constexpr int RPW = 32 / LPR;        // key rows per warp-wide load
-  constexpr int KPW = SPLIT / NW;      // keys per warp
-  constexpr int NI = KPW / RPW;        // key rows per lane
-  constexpr int CH = NI < 8 ? NI : 8;  // key rows per lane in flight at once
-  static_assert(LPR <= 32 && 32 % LPR == 0 && KPW % RPW == 0 && NI % CH == 0,
+  constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte load
+  constexpr int ROW = D / VEC;              // 16-byte loads per key row
+  constexpr int LPR = ROW < 32 ? ROW : 32;  // lanes per key row
+  constexpr int LDS = ROW / LPR;            // 16-byte loads per lane and row (2: fp32 D = 256)
+  constexpr int E = LDS * VEC;              // elements per lane and row
+  constexpr int RPW = 32 / LPR;             // key rows per warp-wide load
+  constexpr int KPW = SPLIT / NW;           // keys per warp
+  constexpr int NI = KPW / RPW;             // key rows per lane
+  constexpr int CH0 = 8 / LDS;              // key rows per lane in flight at once
+  constexpr int CH = NI < CH0 ? NI : CH0;
+  static_assert(ROW % LPR == 0 && 32 % LPR == 0 && KPW % RPW == 0 && NI % CH == 0,
                 "split, head dim and load width do not tile a warp");
 
   __shared__ float sm_m[NW][MAXG], sm_l[NW][MAXG];
@@ -104,59 +110,79 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     return;
   }
 
-  const int c = lane % LPR;   // this lane's 16-byte slice of a row: elements c*VEC ..
+  // this lane's 16-byte slices of a row: elements (c + LPR * j) * VEC .., j < LDS
+  const int c = lane % LPR;
   const int rg = lane / LPR;  // which of the warp's RPW rows this lane loads
   const size_t kv_row = static_cast<size_t>(KVH) * D;
   const T* kb = k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * D + c * VEC;
   const T* vb = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * D + c * VEC;
 
-  float qr[MAXG][VEC];
+  float qr[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < ng) {
-      const size_t off = (static_cast<size_t>(b) * H + kvh * group + g0 + g) * D + c * VEC;
-      unpack(*reinterpret_cast<const uint4*>(q + off), qr[g]);
-    } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qr[g][e] = 0.f;
+    for (int j = 0; j < LDS; ++j) {
+      float f[VEC];
+      if (g < ng) {
+        const size_t off =
+            (static_cast<size_t>(b) * H + kvh * group + g0 + g) * D + (c + LPR * j) * VEC;
+        unpack(*reinterpret_cast<const uint4*>(q + off), f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) f[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[g][j * VEC + e] = f[e];
     }
   }
 
-  float m[MAXG], l[MAXG], acc[MAXG][VEC];
+  float m[MAXG], l[MAXG], acc[MAXG][E];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
 #pragma unroll
   for (int i0 = 0; i0 < NI; i0 += CH) {
-    uint4 kr[CH], vr[CH];
+    uint4 kr[CH][LDS], vr[CH][LDS];
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int key = k0 + warp * KPW + (i0 + i) * RPW + rg;
-      if (key < len) {
-        kr[i] = __ldg(reinterpret_cast<const uint4*>(kb + key * kv_row));
-        vr[i] = __ldg(reinterpret_cast<const uint4*>(vb + key * kv_row));
-      } else {  // past the length: never read; V zero, the score masked below
-        kr[i] = make_uint4(0u, 0u, 0u, 0u);
-        vr[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < LDS; ++j) {
+        if (key < len) {
+          kr[i][j] = __ldg(reinterpret_cast<const uint4*>(kb + key * kv_row + LPR * j * VEC));
+          vr[i][j] = __ldg(reinterpret_cast<const uint4*>(vb + key * kv_row + LPR * j * VEC));
+        } else {  // past the length: never read; V zero, the score masked below
+          kr[i][j] = make_uint4(0u, 0u, 0u, 0u);
+          vr[i][j] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int key = k0 + warp * KPW + (i0 + i) * RPW + rg;
-      float kf[VEC], vf[VEC];
-      unpack(kr[i], kf);
-      unpack(vr[i], vf);
+      float kf[E], vf[E];
+#pragma unroll
+      for (int j = 0; j < LDS; ++j) {
+        float kj[VEC], vj[VEC];
+        unpack(kr[i][j], kj);
+        unpack(vr[i][j], vj);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          kf[j * VEC + e] = kj[e];
+          vf[j * VEC + e] = vj[e];
+        }
+      }
       float s[MAXG];
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         float x = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) x = fmaf(qr[g][e], kf[e], x);
+        for (int e = 0; e < E; ++e) x = fmaf(qr[g][e], kf[e], x);
         s[g] = x;
       }
       // the LPR lanes of a row hold the row's slices: sum them
@@ -174,7 +200,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
         const float p = expf(x - m_new);
         l[g] = alpha * l[g] + p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], alpha * acc[g][e]);
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[e], alpha * acc[g][e]);
         m[g] = m_new;
       }
     }
@@ -191,7 +217,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       const float a = expf(m[g] - m_new), ao = expf(mo - m_new);
       l[g] = a * l[g] + ao * lo;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
+      for (int e = 0; e < E; ++e)
         acc[g][e] = a * acc[g][e] + ao * __shfl_xor_sync(0xffffffffu, acc[g][e], off);
       m[g] = m_new;
     }
@@ -202,7 +228,10 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][c * VEC + e] = acc[g][e];
+      for (int j = 0; j < LDS; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][g][(c + LPR * j) * VEC + e] = acc[g][j * VEC + e];
   }
   if (lane == 0) {
 #pragma unroll
@@ -305,6 +334,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
                            sm_scale, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, lengths, o, m_part, l_part, acc_part, B, S, H, KVH,
+                            sm_scale, softcap, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, lengths, o, m_part, l_part, acc_part, B, S, H, KVH,
                             sm_scale, softcap, stream);
     default:
       return cudaErrorInvalidValue;

@@ -34,6 +34,11 @@
 //   takes: the loop waits on loads and on dependent mma chains, and 16 warps
 //   an SM hide more of that than 12 with more registers. At D = 64 that
 //   costs a 4-byte spill, which measured cheaper than the 3-block build.
+//   At D = 256 (recurrentgemma's MQA) the 128 registers of the output
+//   accumulator leave no room for Q's 64 registers of fragments, so Q is
+//   read from shared memory at each k-step instead (one ldmatrix per 16
+//   columns, amortized over the tile's 8 mma n-tiles); the shared memory,
+//   (64 + 4 x 64) rows of 264 bf16, is 168,960 bytes, one block an SM.
 //   wgmma and TMA are left out. At 256 tokens the bound is the bytes (6.3 us
 //   against 2.2 us of FLOPs), so a warpgroup / TMA producer-consumer design
 //   is queued for long prompts, where FLOPs dominate; PERF.md has how far this
@@ -42,7 +47,8 @@
 //   thread a 4x4 block of scores and a 4x(D/16) block of the output), kept
 //   because TF32 tensor cores would not hold the fp32 tolerance. It also
 //   takes D = 16, the head dim of the smoke configs (cfg.smoke()), which
-//   the bf16 kernel does not.
+//   the bf16 kernel does not. At D = 256 its tiles take 214,272 bytes of
+//   shared memory, under the 232,448 a block may have.
 //
 // Both keep the reference's finite NEG_INF, its tile-skip rule (with this
 // kernel's q tile), the "fully masked first tile gets p = 1 and is wiped by
@@ -351,7 +357,12 @@ __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  uint32_t qf[KD][4];
+  // Q's fragments stay in registers up to D = 128; at D = 256 the output
+  // accumulator alone takes 128 registers a thread, so each k-step reloads
+  // its Q fragment from the Q tile, which stays in shared memory
+  constexpr bool kQInRegs = D <= 128;
+  uint32_t qf[kQInRegs ? KD : 1][4];
+  const bf16* q_frag = Qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
 
   if (kt_lo <= kt_hi) {
     for (int i = tid; i < BQM * CH; i += NTM) {
@@ -375,10 +386,9 @@ __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
     }
     __syncthreads();  // tile kt (and on the first pass Q) is in shared memory
 
-    if (kt == kt_lo) {
+    if (kQInRegs && kt == kt_lo) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+      for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kQInRegs ? kk : 0], q_frag + kk * 16);
     }
     const bf16* Kt = Ks + stage * BK * LD;
     const bf16* Vt = Vs + stage * BK * LD;
@@ -391,13 +401,15 @@ __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      const int qi = kQInRegs ? kk : 0;
+      if (!kQInRegs) ldmatrix_x4(qf[0], q_frag + kk * 16);
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kt + (jp * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
                             ((lane / 8) % 2) * 8);
-        mma_bf16_16816(s[2 * jp], qf[kk], kf[0], kf[1]);
-        mma_bf16_16816(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16_16816(s[2 * jp], qf[qi], kf[0], kf[1]);
+        mma_bf16_16816(s[2 * jp + 1], qf[qi], kf[2], kf[3]);
       }
     }
 
@@ -565,6 +577,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                           sm_scale, softcap, st);
     case 128:
       return launch_d<128>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
+                           sm_scale, softcap, st);
+    case 256:
+      return launch_d<256>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
                            sm_scale, softcap, st);
     default:
       return cudaErrorInvalidValue;

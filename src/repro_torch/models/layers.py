@@ -50,7 +50,8 @@ def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Project hidden states to logits with the (tied) table."""
+    """Project hidden states to logits with the table given: the tied
+    embedding or the untied ``head``."""
     return x @ p["w"].T
 
 
@@ -93,3 +94,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"silu": F.silu, "gelu": gelu, "geglu": gelu, "relu": F.relu}[name]
+
+
+GATED_ACTS = ("silu", "geglu")  # SwiGLU / GeGLU

@@ -1,22 +1,32 @@
-"""Feed-forward block: SwiGLU, ``silu(x @ w_gate) * (x @ w_in) @ w_out``."""
+"""Feed-forward blocks: gated (SwiGLU, GeGLU) and plain MLPs.
+
+Gated: ``act(x @ w_gate) * (x @ w_in) @ w_out``; plain: ``act(x @ w_in) @ w_out``.
+"""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
-import torch.nn.functional as F
 
-from .layers import DTYPES, Params, dense, dense_init
+from .layers import DTYPES, GATED_ACTS, Params, activation, dense, dense_init
 
 
-def mlp_init(gen: torch.Generator, cfg) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None) -> Params:
+    """``d_ff`` overrides ``cfg.d_ff`` (the MoE's shared experts)."""
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
     dt = DTYPES[cfg.param_dtype]
-    return {
+    p: Params = {
         "w_in": dense_init(gen, d, f, dt),
         "w_out": dense_init(gen, f, d, dt, scale=1.0 / max(1, cfg.num_layers) ** 0.5),
-        "w_gate": dense_init(gen, d, f, dt),
     }
+    if cfg.act in GATED_ACTS:
+        p["w_gate"] = dense_init(gen, d, f, dt)
+    return p
 
 
-def mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(dense(p["w_gate"], x)) * dense(p["w_in"], x)
+def mlp_apply(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    act = activation(cfg.act)
+    h = dense(p["w_in"], x)
+    h = act(dense(p["w_gate"], x)) * h if "w_gate" in p else act(h)
     return dense(p["w_out"], h)

@@ -1,4 +1,4 @@
-"""Model interface: init / forward / prefill / decode for the dense LM family.
+"""Model interface: init / forward / prefill / decode for the dense, MoE and hybrid LMs.
 
 ``batch`` dicts hold ``{"tokens": (B, S) int32[, "positions": (B, S)]}``.
 Decode: ``decode_step(params, cfg, token, positions, cache)`` takes one new
@@ -36,11 +36,14 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     pdt = DTYPES[cfg.param_dtype]
-    return {
+    p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pdt),
         "stack": transformer.stack_init(gen, cfg),
         "final_norm": norm_init(cfg.d_model, pdt, gen.device),
     }
+    if not cfg.tie_embeddings:
+        p["head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, pdt)
+    return p
 
 
 def _positions(batch: Dict[str, Any]) -> torch.Tensor:
@@ -51,26 +54,27 @@ def _positions(batch: Dict[str, Any]) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
-def _embed_inputs(p: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
-    return embed(p["embed"], batch["tokens"]).to(DTYPES[cfg.dtype])
+def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed(p["embed"], tokens).to(DTYPES[cfg.dtype])
+    return x * (cfg.d_model ** 0.5) if cfg.family == "hybrid" else x  # gemma scaling
 
 
 def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return unembed(p["embed"], apply_norm(p["final_norm"], x))
+    return unembed(p["head"] if "head" in p else p["embed"], apply_norm(p["final_norm"], x))
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B, S, V), aux loss 0)."""
-    x = _embed_inputs(p, cfg, batch)
-    x = transformer.stack_apply(p["stack"], cfg, x, _positions(batch), impl=impl)
-    return _logits(p, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    """Full-sequence forward. Returns (logits (B, S, V), the MoE's aux loss)."""
+    x = _embed_tokens(p, cfg, batch["tokens"])
+    x, aux = transformer.stack_apply(p["stack"], cfg, x, _positions(batch), impl=impl)
+    return _logits(p, x), aux
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, *,
             impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """Run the prompt; return (last-position logits (B, 1, V), per-layer caches)."""
-    x = _embed_inputs(p, cfg, batch)
+    x = _embed_tokens(p, cfg, batch["tokens"])
     caches = transformer.init_cache(cfg, x.shape[0], cache_len, device=x.device)
     x, caches = transformer.stack_prefill(p["stack"], cfg, x, _positions(batch), caches,
                                           impl=impl)
@@ -80,7 +84,8 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, 
 def decode_step(p: Params, cfg: ModelConfig, token: torch.Tensor, positions: torch.Tensor,
                 cache: List[Dict[str, Any]], *,
                 impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """token (B, 1) int32; positions (B, 1). The caches are updated in place."""
-    x = embed(p["embed"], token).to(DTYPES[cfg.dtype])
+    """token (B, 1) int32; positions (B, 1). The KV caches are updated in place; a
+    recurrent layer's state is replaced by the one returned."""
+    x = _embed_tokens(p, cfg, token)
     x, cache = transformer.stack_decode(p["stack"], cfg, x, positions, cache, impl=impl)
     return _logits(p, x), cache

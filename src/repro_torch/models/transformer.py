@@ -1,8 +1,12 @@
-"""Decoder-only stack of uniform attention + SwiGLU blocks, and its caches.
+"""Decoder-only stack of mixed block kinds, and its caches.
 
-The JAX package scans stacked layer parameters; here the stack is a list of
-per-layer parameter dicts and the cache a list of per-layer cache dicts,
-walked by a Python loop. Only the uniform all-attention stack is ported.
+Block kinds come from ``cfg.pattern()``: ``ATTN`` (self attention, then an
+MLP or a mixture of experts) and ``RECUR`` (the RG-LRU block, then an MLP).
+The JAX package scans the stacked layers of a uniform attention stack and
+unrolls the hybrid ones; here every stack is one list of per-layer parameter
+dicts, and the cache one list of per-layer cache dicts (a KV cache for an
+attention layer, ``{"h", "conv_buf"}`` for a recurrent one), walked by a
+Python loop beside ``cfg.pattern()``.
 """
 from __future__ import annotations
 
@@ -10,67 +14,108 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..configs.base import ATTN, MLSTM, RECUR, SLSTM
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import DTYPES, Params, apply_norm, norm_init
 from .mlp import mlp_apply, mlp_init
+from .rglru import rglru_apply, rglru_decode, rglru_init, rglru_state_init
 
 
 def check_supported(cfg) -> None:
-    """Raise for an architecture feature the port does not run yet."""
+    """Raise for an architecture feature the port does not run yet, with its ROADMAP item."""
+    kinds = set(cfg.pattern())
     unported = {
-        "a block kind other than attention": bool(cfg.block_pattern),
-        "mixture of experts": cfg.num_experts > 0,
-        "encoder-decoder": cfg.is_encoder_decoder,
-        "a positional mode other than rope": cfg.rope_mode != "rope",
-        "a norm other than rmsnorm": cfg.norm != "rmsnorm",
-        "an MLP other than SwiGLU": cfg.act != "silu" or cfg.d_ff == 0,
-        "a frontend stub": cfg.frontend != "none",
-        "an untied unembedding": not cfg.tie_embeddings,
+        "mLSTM / sLSTM blocks (ROADMAP A.10.6)": bool(kinds & {MLSTM, SLSTM}),
+        "encoder-decoder (ROADMAP A.10.7)": cfg.is_encoder_decoder,
+        "LayerNorm (ROADMAP A.10.7)": cfg.norm != "rmsnorm",
+        "a positional mode other than rope (ROADMAP A.10.7)": cfg.rope_mode not in ("rope",
+                                                                                   "mrope"),
+        "M-RoPE (ROADMAP A.10.8)": cfg.rope_mode == "mrope",
+        "a frontend stub (ROADMAP A.10.8)": cfg.frontend != "none",
+        "moe_dense_residual (ROADMAP A.10.8)": cfg.moe_dense_residual,
     }
     missing = [what for what, used in unported.items() if used]
     if missing:
         raise NotImplementedError(f"{cfg.name}: the port does not run {', '.join(missing)} yet")
 
 
+def _layer_window(cfg, kind: str) -> int:
+    # hybrid archs use windowed local attention for their ATTN layers
+    return cfg.attn_window if kind == ATTN else 0
+
+
 # ---------------------------------------------------------------------------
 # single block
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg) -> Params:
+def block_init(gen: torch.Generator, cfg, kind: str) -> Params:
     pdt = DTYPES[cfg.param_dtype]
-    return {
-        "norm1": norm_init(cfg.d_model, pdt, gen.device),
-        "attn": attn.attn_init(gen, cfg),
-        "norm2": norm_init(cfg.d_model, pdt, gen.device),
-        "mlp": mlp_init(gen, cfg),
-    }
+    p: Params = {"norm1": norm_init(cfg.d_model, pdt, gen.device)}
+    if kind == ATTN:
+        p["attn"] = attn.attn_init(gen, cfg)
+        p["norm2"] = norm_init(cfg.d_model, pdt, gen.device)
+        if cfg.num_experts:
+            p["moe"] = moe_mod.moe_init(gen, cfg)
+        elif cfg.d_ff:
+            p["mlp"] = mlp_init(gen, cfg)
+    elif kind == RECUR:
+        p["recur"] = rglru_init(gen, cfg)
+        if cfg.d_ff:
+            p["norm2"] = norm_init(cfg.d_model, pdt, gen.device)
+            p["mlp"] = mlp_init(gen, cfg)
+    else:
+        raise ValueError(f"block kind {kind!r} is not ported")
+    return p
 
 
-def block_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-                impl: str = "auto") -> torch.Tensor:
-    """Training / no-cache forward of one attention + MLP block."""
+def _ffn(p: Params, cfg, x: torch.Tensor,
+         capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x plus the block's MLP or MoE of norm2(x), and the MoE's aux loss."""
+    if "moe" in p:
+        moe_fn = moe_mod.moe_apply_ep if cfg.moe_impl == "ep" else moe_mod.moe_apply
+        y, aux = moe_fn(p["moe"], cfg, apply_norm(p["norm2"], x),
+                        capacity_factor=capacity_factor)
+        return x + y, aux
+    if "mlp" in p:
+        x = x + mlp_apply(p["mlp"], cfg, apply_norm(p["norm2"], x))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor, *,
+                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training / no-cache forward of one block. Returns (x, aux loss)."""
     h = apply_norm(p["norm1"], x)
-    x = x + attn.attn_apply(p["attn"], cfg, h, positions, causal=True,
-                            window=cfg.attn_window, impl=impl)
-    return x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x))
+    if kind == ATTN:
+        x = x + attn.attn_apply(p["attn"], cfg, h, positions, causal=True,
+                                window=_layer_window(cfg, kind), impl=impl)
+    else:
+        x = x + rglru_apply(p["recur"], cfg, h)
+    return _ffn(p, cfg, x)
 
 
-def block_prefill(p: Params, cfg, x, positions, cache, *, impl: str = "auto"):
+def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
     """Forward that also fills this layer's decode cache."""
     h = apply_norm(p["norm1"], x)
-    y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
-                                     window=cfg.attn_window, impl=impl)
-    x = x + y
-    return x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x)), new_cache
+    if kind == ATTN:
+        y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
+                                         window=_layer_window(cfg, kind), impl=impl)
+    else:
+        y, new_cache = rglru_apply(p["recur"], cfg, h, return_state=True)
+    x, _ = _ffn(p, cfg, x + y)
+    return x, new_cache
 
 
-def block_decode(p: Params, cfg, x, positions, cache, *, impl: str = "auto"):
+def block_decode(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
     """One-token step. x (B, 1, D)."""
     h = apply_norm(p["norm1"], x)
-    y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
-                                    window=cfg.attn_window, impl=impl)
-    x = x + y
-    return x + mlp_apply(p["mlp"], apply_norm(p["norm2"], x)), new_cache
+    if kind == ATTN:
+        y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
+                                        window=_layer_window(cfg, kind), impl=impl)
+    else:
+        y, new_cache = rglru_decode(p["recur"], cfg, h, cache)
+    x, _ = _ffn(p, cfg, x + y, capacity_factor=2.0)
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -78,20 +123,23 @@ def block_decode(p: Params, cfg, x, positions, cache, *, impl: str = "auto"):
 # ---------------------------------------------------------------------------
 
 def stack_init(gen: torch.Generator, cfg) -> Params:
-    return {"layers": [block_init(gen, cfg) for _ in range(cfg.num_layers)]}
+    return {"layers": [block_init(gen, cfg, kind) for kind in cfg.pattern()]}
 
 
-def stack_apply(p: Params, cfg, x, positions, *, impl: str = "auto") -> torch.Tensor:
-    for lp in p["layers"]:
-        x = block_apply(lp, cfg, x, positions, impl=impl)
-    return x
+def stack_apply(p: Params, cfg, x, positions, *,
+                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(p["layers"], cfg.pattern()):
+        x, aux_i = block_apply(lp, cfg, kind, x, positions, impl=impl)
+        aux = aux + aux_i
+    return x, aux
 
 
 def stack_prefill(p: Params, cfg, x, positions, caches: List[Dict[str, Any]], *,
                   impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     new_caches = []
-    for lp, cache in zip(p["layers"], caches):
-        x, cache = block_prefill(lp, cfg, x, positions, cache, impl=impl)
+    for lp, kind, cache in zip(p["layers"], cfg.pattern(), caches):
+        x, cache = block_prefill(lp, cfg, kind, x, positions, cache, impl=impl)
         new_caches.append(cache)
     return x, new_caches
 
@@ -99,8 +147,8 @@ def stack_prefill(p: Params, cfg, x, positions, caches: List[Dict[str, Any]], *,
 def stack_decode(p: Params, cfg, x, positions, caches: List[Dict[str, Any]], *,
                  impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     new_caches = []
-    for lp, cache in zip(p["layers"], caches):
-        x, cache = block_decode(lp, cfg, x, positions, cache, impl=impl)
+    for lp, kind, cache in zip(p["layers"], cfg.pattern(), caches):
+        x, cache = block_decode(lp, cfg, kind, x, positions, cache, impl=impl)
         new_caches.append(cache)
     return x, new_caches
 
@@ -109,12 +157,17 @@ def stack_decode(p: Params, cfg, x, positions, caches: List[Dict[str, Any]], *,
 # caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, cache_len: int, *, device,
-               dtype: Optional[torch.dtype] = None) -> List[Dict[str, Any]]:
-    """One zeroed KV cache per layer; a windowed layer keeps only its window."""
-    dtype = dtype or DTYPES[cfg.dtype]
+def _attn_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> Dict[str, Any]:
+    """A zeroed KV cache; a windowed layer keeps only its window."""
     length = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
     shape = (batch, length, cfg.num_kv_heads, cfg.hd())
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device),
-             "pos": 0} for _ in range(cfg.num_layers)]
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": 0}
+
+
+def init_cache(cfg, batch: int, cache_len: int, *, device,
+               dtype: Optional[torch.dtype] = None) -> List[Dict[str, Any]]:
+    """One zeroed cache per layer, by its kind."""
+    dtype = dtype or DTYPES[cfg.dtype]
+    return [_attn_cache_init(cfg, batch, cache_len, dtype, device) if kind == ATTN
+            else rglru_state_init(cfg, batch, dtype, device=device) for kind in cfg.pattern()]

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
 The cases are ``chip_smoke.py``'s: those of ``tests/test_kernels.py`` plus
-softcap, ``q_offset``, ragged-tile and explicit-length cases
+softcap, ``q_offset``, ragged-tile and explicit-length cases, and head dims
+16 (fp32) and 256 (both dtypes; recurrentgemma-9b's MQA)
 (``tests/test_torch_kernels.py`` checks that the copies agree). This file imports no JAX, so it runs on a GPU machine
 without it:
 
@@ -147,3 +148,32 @@ def test_default_fleet_serves_on_the_card(cuda):
     """``Fleet([arch], 2)`` at its defaults (cfg.smoke(): head dim 16, fp32)
     serves through both kernels, its logits those of ``impl="ref"``."""
     chip_smoke.fleet_smoke_phase(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_D256)
+def test_flash_kernel_head_dim_256(cuda, case, dtype):
+    test_flash_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES_D256)
+def test_decode_kernel_head_dim_256(cuda, case, dtype):
+    test_decode_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES_D256)
+def test_decode_kernel_head_dim_256_explicit_lengths(cuda, case, dtype):
+    test_decode_kernel_explicit_lengths(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+def test_three_arch_fleet_serves_on_the_card(cuda):
+    """The reference's serve_fleet.py loop on the card: GT-DRL's split to a
+    dense, an MoE and a hybrid arch (smoke widths) through both kernels, every
+    server's logits those of ``impl="ref"``."""
+    chip_smoke.serve_fleet_phase(cuda)

@@ -138,11 +138,23 @@ def test_configs_and_param_count_equal_reference(arch):
         assert tcfg.param_count(active_only) == jcfg.param_count(active_only)
 
 
+# the llm workload's archs that the port's model code serves, and the ROADMAP
+# item of each it does not run yet
+SERVED_LLM_ARCHS = ("qwen2-7b", "qwen2-moe-a2.7b", "mistral-large-123b")
+UNPORTED_ITEM = {"arctic-480b": "A.10.8", "whisper-base": "A.10.7"}
+
+
 @pytest.mark.parametrize("arch", LLM_ARCHS)
 def test_model_server_rejects_unported_archs(arch):
-    """These configs size the simulated fleet; the model code does not run them."""
-    with pytest.raises(NotImplementedError, match="does not run"):
-        ModelServer(get_config(arch).smoke(), device="cpu")
+    """These configs size the simulated fleet. The model code serves
+    qwen2-7b, qwen2-moe-a2.7b and mistral-large-123b; it refuses the others,
+    naming their ROADMAP item."""
+    cfg = get_config(arch).smoke()
+    if arch in SERVED_LLM_ARCHS:
+        assert ModelServer(cfg, device="cpu").params["stack"]["layers"]
+        return
+    with pytest.raises(NotImplementedError, match=f"does not run.*{UNPORTED_ITEM[arch]}"):
+        ModelServer(cfg, device="cpu")
 
 
 def test_env_batch_helpers_equal_reference():

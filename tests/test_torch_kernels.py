@@ -183,6 +183,27 @@ def test_decode_plain_head_dim_16_explicit_lengths(case, split):
     test_decode_split_plain_explicit_lengths(case, "float32", split)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_D256)
+def test_flash_plain_head_dim_256_matches_jax(case, dtype):
+    """Head dim 256 (recurrentgemma-9b's MQA), both dtypes: the cases the card
+    holds both kernels to, here the plain versions against Pallas."""
+    test_flash_plain_matches_jax(case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES_D256)
+def test_decode_plain_head_dim_256_matches_jax(case, dtype):
+    test_decode_plain_matches_jax(case, dtype)
+    test_decode_split_plain_matches_jax(case, dtype, tdecode.SPLIT)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES_D256)
+def test_decode_plain_head_dim_256_explicit_lengths(case, dtype):
+    test_decode_split_plain_explicit_lengths(case, dtype, tdecode.SPLIT)
+
+
 def test_chip_smoke_holds_the_same_cases():
     """chip_smoke.py, which cannot import the JAX tests, keeps a copy of these cases."""
     assert chip_smoke.FLASH_CASES == FLASH_PARAMS

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's two attention kernels at llama3.2-1b's serving shapes.
 
-    python3 time_attention.py [--src DIR]
+    python3 time_attention.py [--src DIR] [--decode-d256]
 
 Times ``flash_attention`` (q (8,256,32,64), causal) and ``decode_attention``
 (q (8,32,64), cache (8,1024,8,64), lengths 257-287) in bf16 from the
@@ -13,6 +13,15 @@ unpack the other commit into a directory ``.gitignore`` lists (``git
 archive``) and run parent, change, change, parent in one session on the card.
 Each kernel is held against this checkout's plain version first. Prints one
 JSON line; exits non-zero without a CUDA device.
+
+With ``--decode-d256`` it times ``decode_attention`` instead at
+recurrentgemma-9b's decode shape (q (8,16,256), cache (8,2048,1,256),
+lengths 2048, bf16) beside two controls that split its cost. The kernel
+gives a block 4 query heads of a group, so the group of 16 takes 4 blocks,
+each reading the same kv head. "one block" (H = 4) keeps each block's work
+and drops 3 of the 4 blocks; "gqa" (H = 16, KVH = 4) keeps the grid and each
+block's work and gives every block a kv head of its own, 4x the distinct
+bytes.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="the directory that holds the repro_torch package to time")
+    parser.add_argument("--decode-d256", action="store_true",
+                        help="time decode at recurrentgemma-9b's shape and its controls")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
@@ -58,6 +69,10 @@ def main() -> int:
 
     flush = torch.empty(chip_smoke.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     out = {"src": str(src)}
+    if args.decode_d256:
+        out["decode_attention_d256"] = _decode_d256(chip_smoke, ref, dec_mod, randn, flush)
+        print(json.dumps(out | {"card": _card()}))
+        return 0
 
     q, k, v = randn(batch, prompt, h, d), randn(batch, prompt, kvh, d), randn(batch, prompt, kvh, d)
     kernel = lambda: flash_mod.flash_attention(q, k, v, causal=True)
@@ -79,11 +94,34 @@ def main() -> int:
         lengths=lens.tolist(), max_abs_err=err, ms=chip_smoke.time_ms(kernel, iters=100),
         ms_cold_l2=chip_smoke.time_ms(kernel, iters=100, flush=flush))
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    out["card"] = smi.stdout.strip()
+    out["card"] = _card()
     print(json.dumps(out))
     return 0
+
+
+def _decode_d256(chip_smoke, ref, dec_mod, randn, flush) -> dict:
+    """decode_attention at (H, KVH) = (16, 1), recurrentgemma-9b's, and the
+    controls (4, 1) and (16, 4): batch 8, 2048 cached keys, head dim 256."""
+    batch, cache, d = 8, 2048, 256
+    lens = torch.full((batch,), cache, dtype=torch.int32, device=flush.device)
+    res = {}
+    for name, h, kvh in (("mqa", 16, 1), ("one block", 4, 1), ("gqa", 16, 4)):
+        q, kc, vc = randn(batch, h, d), randn(batch, cache, kvh, d), randn(batch, cache, kvh, d)
+        kernel = lambda: dec_mod.decode_attention(q, kc, vc, lens)
+        err = chip_smoke.max_err(kernel(), ref.decode_attention_ref(q, kc, vc, lens))
+        if not err < chip_smoke.TOL[torch.bfloat16]:
+            raise SystemExit(f"time_attention: decode_attention {name} max err {err}")
+        res[name] = dict(q=list(q.shape), cache=list(kc.shape), max_abs_err=err,
+                         cache_bytes=2 * kc.numel() * kc.element_size(),
+                         ms=chip_smoke.time_ms(kernel, iters=100),
+                         ms_cold_l2=chip_smoke.time_ms(kernel, iters=100, flush=flush))
+    return res
+
+
+def _card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
 
 
 def _plain_versions():
