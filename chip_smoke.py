@@ -5,17 +5,21 @@
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/kernels/`` (ignored by git), holds each kernel against its plain
-PyTorch version on the card (head dim 16 in fp32 too, 256 in both dtypes),
-times both (at llama3.2-1b's and recurrentgemma-9b's shapes), then serves
-llama3.2-1b at full width (16 layers, d_model 2048, bf16, random weights
-from seed 0) through ``ModelServer.generate`` and a two-data-center
-``Fleet``, and checks that the serving path went through both kernels and
-that its logits and tokens are sane; ``[fleet-smoke]`` serves the default
-``Fleet`` (``cfg.smoke()``, head dim 16) the same way; ``[serve-arch]``
-serves qwen2-moe-a2.7b, recurrentgemma-9b (a prompt past its attention
-window), qwen2-7b and llama3.2-3b at full width, one at a time, the same
-way; ``[serve-fleet]`` runs the reference's examples/serve_fleet.py loop
-(GT-DRL's split to a dense, an MoE and a hybrid smoke server x 2 DCs). Then
+PyTorch version on the card (head dim 16 in fp32 too, 256 in both dtypes,
+whisper-base's non-causal shapes), times both (at llama3.2-1b's and
+recurrentgemma-9b's shapes, and at whisper-base's, qwen2-vl-72b's and
+arctic-480b's), then serves llama3.2-1b at full width (16 layers, d_model
+2048, bf16, random weights from seed 0) through ``ModelServer.generate`` and
+a two-data-center ``Fleet``, and checks that the serving path went through
+both kernels and that its logits and tokens are sane; ``[fleet-smoke]``
+serves the default ``Fleet`` (``cfg.smoke()``, head dim 16) of llama3.2-1b
+and of whisper-base the same way; ``[serve-arch]`` serves ``SERVE_ARCHS``
+at their published widths, one at a time, the same way: qwen2-moe-a2.7b,
+recurrentgemma-9b (a prompt past its attention window), qwen2-7b,
+llama3.2-3b, whisper-base, xlstm-125m, and qwen2-vl-72b and arctic-480b at
+the depth one card holds; ``[serve-fleet]`` runs the reference's
+examples/serve_fleet.py loop (GT-DRL's split to a dense, an MoE and a
+hybrid smoke server x 2 DCs). Then
 it drives the scheduler path (``repro_torch.core``) on the paper's fleets
 built on the card:
 
@@ -57,6 +61,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -106,6 +111,18 @@ FLASH_CASES = [
     (1, 96, 320, 4, 1, 32, True, 64, 25.0, 224),
     (1, 100, 100, 4, 2, 64, True, 0, 0.0, 0),
     (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),
+    (2, 1, 100, 4, 4, 64, False, 0, 0.0, 0),
+    (3, 4, 150, 8, 2, 64, False, 0, 0.0, 0),
+    (2, 1, 70, 8, 1, 128, False, 0, 0.0, 0),
+]
+# whisper-base's flash calls at its serving shapes (the audio-asr profile:
+# batch 48, 1500 frames, 8 heads of 64): the decoder's cross attention at
+# decode (one query row) and over the 4-token prompt, and the encoder; none
+# causal, Skv not a multiple of the 64-key tile. Both dtypes
+FLASH_CASES_WHISPER = [
+    (48, 1, 1500, 8, 8, 64, False, 0, 0.0, 0),
+    (48, 4, 1500, 8, 8, 64, False, 0, 0.0, 0),
+    (48, 1500, 1500, 8, 8, 64, False, 0, 0.0, 0),
 ]
 # llama3.2-1b attention at batch 8 beyond the serving prefill: (sq, skv, causal)
 FLASH_SWEEP = [(256, 64, False), (256, 128, False), (256, 256, False), (1024, 1024, True)]
@@ -128,6 +145,8 @@ DECODE_LENGTH_CASES = [
 # Fleet serves; the smoke fleet's prefill and decode shapes first
 FLASH_CASES_D16 = [
     (4, 16, 16, 4, 4, 16, True, 0, 0.0, 0),
+    (3, 1, 16, 4, 4, 16, False, 0, 0.0, 0),  # the smoke whisper's cross attention at decode
+    (3, 16, 16, 4, 4, 16, False, 0, 0.0, 0),  # and its encoder
     (2, 100, 100, 4, 2, 16, True, 0, 0.0, 0),
     (1, 96, 320, 4, 1, 16, True, 64, 25.0, 224),
 ]
@@ -150,15 +169,48 @@ DECODE_CASES_D256 = [
     (2, 257, 8, 2, 256, 25.0),
 ]
 DECODE_LENGTH_CASES_D256 = [(4, 256, 16, 1, 256, 0.0, (0, 256, 64, 65))]
-# the archs this slice serves at full width, bf16, batch BATCH, MAX_NEW new
-# tokens: (arch, prompt, cache). recurrentgemma-9b's prompt outruns its
-# 2048-token window, so its prefill takes the windowed mask and the ring roll
-# and its decode writes the ring
-SERVE_ARCHS = [("qwen2-moe-a2.7b", 256, 1024), ("recurrentgemma-9b", 2304, 4096),
-               ("qwen2-7b", 256, 1024), ("llama3.2-3b", 256, 1024)]
-# qwen2-moe-a2.7b's fp32 copy (57 GB) does not fit beside its bf16 weights
-# (28.6 GB): its logits are held on a copy cut to this depth, widths whole
-MOE_LOGIT_LAYERS = 4
+
+
+class ServeCase(NamedTuple):
+    """One arch served at full width, bf16, by [serve-arch]: ``batch``
+    requests of ``prompt`` tokens, ``new`` new tokens each, a ``cache``-slot
+    KV cache. ``layers`` cuts the depth where one 80 GB card forces it (None:
+    all); the first-step logits are held on ``logit_layers`` of them at
+    ``logit_prompt`` tokens (None: as served), in fp32 once the server is
+    freed, the copy made leaf by leaf in place of the bf16 weights."""
+    arch: str
+    prompt: int
+    cache: int
+    batch: int = 8
+    new: int = 32
+    layers: Optional[int] = None
+    logit_layers: Optional[int] = None
+    logit_prompt: Optional[int] = None
+
+
+# recurrentgemma-9b's prompt outruns its 2048-token window, so its prefill
+# takes the windowed mask and the ring roll and its decode writes the ring.
+# qwen2-moe-a2.7b's fp32 copy (57 GB) fits once its bf16 weights (28.6 GB)
+# are converted in place, so its logits are held at full depth.
+# whisper-base at the llm workload's audio-asr profile (batch 48, 1500
+# frames, a 4-token decoder prompt, 180 new tokens). xlstm-125m's 1000-token
+# prompt takes the mLSTM's chunkwise form over 4 chunks (24 rows padded).
+# qwen2-vl-72b's prompt is its 1024 patch positions and 256 of text; 8 of its
+# 80 layers (19 GB in bf16) leave room for the fp32 copy (38 GB). arctic-480b
+# at its moe-480b profile's 2048-token prompt: one layer's 128 experts take
+# 26.8 GB in bf16, so 2 of its 35 layers are served (55 GB) and its fp32
+# logits (one layer, 56 GB) are held at 256 tokens once the server is freed
+SERVE_ARCHS = [
+    ServeCase("qwen2-moe-a2.7b", 256, 1024),
+    ServeCase("recurrentgemma-9b", 2304, 4096),
+    ServeCase("qwen2-7b", 256, 1024),
+    ServeCase("llama3.2-3b", 256, 1024),
+    ServeCase("whisper-base", 4, 256, batch=48, new=180),
+    ServeCase("xlstm-125m", 1000, 1024),
+    ServeCase("qwen2-vl-72b", 1280, 2048, layers=8),
+    ServeCase("arctic-480b", 2048, 4096, layers=2, logit_layers=1, logit_prompt=256),
+]
+VISION_GRID = 32  # qwen2-vl's stub patches: a 32 x 32 grid leads its prompt
 # the reference's examples/serve_fleet.py: GT-DRL's split over build_env(4)
 # dispatched to a dense, an MoE and a hybrid arch (smoke widths) x 2 DCs
 FLEET_ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-9b"]
@@ -315,13 +367,30 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def next_positions(batch) -> torch.Tensor:
+    """The first decode step's positions: one past the prompt's last, (B, 1)
+    or, given M-RoPE streams (B, S, 3), each stream's last plus one."""
+    if "positions" in batch:
+        return (batch["positions"][:, -1:] + 1).to(torch.int32)
+    b, s = batch["tokens"].shape
+    return torch.full((b, 1), s, dtype=torch.int32, device=batch["tokens"].device)
+
+
 def first_logits(params, cfg, batch, token, impl, cache_len=CACHE):
     """fp32 logits of the prefill and of the first decode step, one attention path."""
     logits, cache = prefill_step(params, batch, cfg=cfg, cache_len=cache_len, impl=impl)
-    b, s = batch["tokens"].shape
-    pos = torch.full((b, 1), s, dtype=torch.int32, device=token.device)
-    dlogits, _ = decode_step(params, token, pos, cache, cfg=cfg, impl=impl)
+    dlogits, _ = decode_step(params, token, next_positions(batch), cache, cfg=cfg, impl=impl)
     return {"prefill": logits.float(), "decode": dlogits.float()}
+
+
+def fp32_in_place(tree) -> None:
+    """Every tensor of the nested dicts and lists ``tree`` made fp32 in place,
+    one at a time, so that the bf16 original is freed before the next copy."""
+    for key in list(tree) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[key], torch.Tensor):
+            tree[key] = tree[key].float()  # the slot held the only reference
+        else:
+            fp32_in_place(tree[key])
 
 
 def library_kernels(fn) -> str:
@@ -343,7 +412,6 @@ def profile_steps(srv, batch, token):
     decode step, from torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
-    b, s = batch["tokens"].shape
     cache = None
     out = {}
     for step in ("prefill", "decode"):
@@ -353,8 +421,7 @@ def profile_steps(srv, batch, token):
             if step == "prefill":
                 _, cache = prefill_step(srv.params, batch, cfg=srv.cfg, cache_len=srv.cache_len)
             else:
-                pos = torch.full((b, 1), s, dtype=torch.int32, device=token.device)
-                decode_step(srv.params, token, pos, cache, cfg=srv.cfg)
+                decode_step(srv.params, token, next_positions(batch), cache, cfg=srv.cfg)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side entries only: an operator's entry repeats its kernels' time
@@ -419,8 +486,8 @@ def main() -> int:
         if not err < TOL[dtype]:
             fail(f"{what} {dtype}: max err {err} >= {TOL[dtype]}")
 
-    cases = [(dtype, FLASH_CASES + FLASH_CASES_D256, DECODE_CASES + DECODE_CASES_D256,
-              DECODE_LENGTH_CASES + DECODE_LENGTH_CASES_D256)
+    cases = [(dtype, FLASH_CASES + FLASH_CASES_D256 + FLASH_CASES_WHISPER,
+              DECODE_CASES + DECODE_CASES_D256, DECODE_LENGTH_CASES + DECODE_LENGTH_CASES_D256)
              for dtype in (torch.float32, torch.bfloat16)]
     cases.append((torch.float32, FLASH_CASES_D16, DECODE_CASES_D16, DECODE_LENGTH_CASES_D16))
     for dtype, flash_cases, decode_cases, decode_length_cases in cases:
@@ -456,6 +523,7 @@ def main() -> int:
           decode_lengths=len(DECODE_LENGTH_CASES) * 2,
           d16_fp32=len(FLASH_CASES_D16 + DECODE_CASES_D16 + DECODE_LENGTH_CASES_D16),
           d256=len(FLASH_CASES_D256 + DECODE_CASES_D256 + DECODE_LENGTH_CASES_D256) * 2,
+          whisper=len(FLASH_CASES_WHISPER) * 2,
           tol_fp32=TOL[torch.float32],
           tol_bf16=TOL[torch.bfloat16], result="within")
 
@@ -543,6 +611,7 @@ def main() -> int:
           library_ms_cold_l2=time_ms(library, iters=100, flush=flush))
     kernels_at_d256(randn, records, flush)
     del flush
+    kernels_at_new_shapes(randn, records)
 
     # -- 4. serving: the main path ----------------------------------------
     t0 = time.perf_counter()
@@ -604,6 +673,7 @@ def main() -> int:
           tok_s={str(k): f"{v:.1f}" for k, v in report["per_server_tps"].items()})
     del fleet
     fleet_smoke_phase(dev)
+    fleet_smoke_phase(dev, "whisper-base")
 
     # -- 5b. the MoE, hybrid and larger dense archs, and the paper's fleet --
     serve_arch_phase(dev, records)
@@ -614,7 +684,7 @@ def main() -> int:
 
     phase("done", seconds=f"{time.perf_counter() - T_START:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "launches_by_path", "d256")
+            "bound_ms", "bound_by", "library_ms", "launches_by_path", "d256", "rows")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -639,18 +709,26 @@ def moe_routes(fn):
         moe_mod._route = route
 
 
-def hold_logits(tag: str, params, cfg, batch, token, cache_len: int, **fields) -> None:
+def hold_logits(tag: str, params, cfg, batch, token, cache_len: int, in_place: bool = False,
+                **fields) -> None:
     """First-step logits of the kernel path against impl="ref": in fp32 the two
     must agree to summation order; in bf16 the kernel path must be no further
     from the fp32 logits than twice the plain bf16 path is. For an MoE, the
-    share of (token, choice) routes the two bf16 paths agree on."""
+    share of (token, choice) routes the two bf16 paths agree on. With
+    ``in_place`` the fp32 copy replaces ``params`` leaf by leaf (the caller
+    holds no other reference to them), where both would not fit at once."""
     b = batch["tokens"].shape[0]
     runs, routes = {}, {}
     for impl in ("auto", "ref"):
         runs["bf16", impl], routes[impl] = moe_routes(
             lambda: first_logits(params, cfg, batch, token, impl, cache_len))
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = tree_map(lambda t: t.float(), params)
+    if in_place:
+        fp32_in_place(params)
+        torch.cuda.empty_cache()
+        params32 = params
+    else:
+        params32 = tree_map(lambda t: t.float(), params)
     runs.update({("fp32", impl): first_logits(params32, cfg32, batch, token, impl, cache_len)
                  for impl in ("auto", "ref")})
     del params32
@@ -692,7 +770,7 @@ def kernels_at_d256(randn, records: dict, flush: torch.Tensor) -> None:
     cfg = get_config("recurrentgemma-9b")
     h, kvh, d, window, bf16 = cfg.num_heads, cfg.num_kv_heads, cfg.hd(), cfg.attn_window, \
         torch.bfloat16
-    _, s, _ = next(a for a in SERVE_ARCHS if a[0] == cfg.name)
+    s = serve_case(cfg.name).prompt
     q, k, v = (randn(BATCH, s, n, d, dtype=bf16) for n in (h, kvh, kvh))
     kw = dict(causal=True, window=window)
     kernel = lambda: flash_mod.flash_attention(q, k, v, **kw)
@@ -719,7 +797,7 @@ def kernels_at_d256(randn, records: dict, flush: torch.Tensor) -> None:
           library_kernels=library_kernels(library))
     del q, k, v, out, kt, vt, qt, mask
 
-    cache = min(next(a for a in SERVE_ARCHS if a[0] == cfg.name)[2], window)
+    cache = min(serve_case(cfg.name).cache, window)
     q = randn(BATCH, h, d, dtype=bf16)
     kc, vc = randn(BATCH, cache, kvh, d, dtype=bf16), randn(BATCH, cache, kvh, d, dtype=bf16)
     lens = torch.full((BATCH,), cache, dtype=torch.int32, device=q.device)
@@ -746,26 +824,155 @@ def kernels_at_d256(randn, records: dict, flush: torch.Tensor) -> None:
           library_kernels=library_kernels(library))
 
 
+def shape_rows() -> tuple:
+    """(flash rows, decode rows) at the serving shapes of whisper-base,
+    qwen2-vl-72b and arctic-480b, from their configs and SERVE_ARCHS, each
+    with its launches in one ``generate`` of [serve-arch] (at the depth it
+    serves). Flash: (arch, what, b, sq, skv, h, kvh, d, causal, launches).
+    Decode: (arch, what, b, cache, h, kvh, d, (lowest, highest) length, launches)."""
+    flash, decode = [], []
+    for arch in ("whisper-base", "qwen2-vl-72b", "arctic-480b"):
+        case = serve_case(arch)
+        cfg = get_config(arch)
+        n, steps = case.layers or cfg.num_layers, case.new - 1
+        b, h, kvh, d = case.batch, cfg.num_heads, cfg.num_kv_heads, cfg.hd()
+        if cfg.is_encoder_decoder:
+            se, p = cfg.encoder_seq, case.prompt
+            flash += [(arch, "encoder", b, se, se, h, kvh, d, False, cfg.num_encoder_layers),
+                      (arch, "prefill self", b, p, p, h, kvh, d, True, n),
+                      (arch, "prefill cross", b, p, se, h, kvh, d, False, n),
+                      (arch, "decode cross", b, 1, se, h, kvh, d, False, n * steps)]
+            # the self caches start empty (ROADMAP C.6): lengths 1 .. new - 1
+            decode.append((arch, "decode self", b, case.cache, h, kvh, d, (1, steps), n * steps))
+        else:
+            flash.append((arch, "prefill", b, case.prompt, case.prompt, h, kvh, d, True, n))
+            decode.append((arch, "decode", b, case.cache, h, kvh, d,
+                           (case.prompt + 1, case.prompt + steps), n * steps))
+    return flash, decode
+
+
+def kernels_at_new_shapes(randn, records: dict) -> None:
+    """Both kernels at each row of ``shape_rows``: the error against the plain
+    version, kernel, plain and library times (scaled_dot_product_attention
+    with enable_gqa), the bound, and the launches a generate makes there."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    flash_rows, decode_rows = shape_rows()
+    for arch, what, b, sq, skv, h, kvh, d, causal, launches in flash_rows:
+        q, k, v = randn(b, sq, h, d, dtype=bf16), randn(b, skv, kvh, d, dtype=bf16), \
+            randn(b, skv, kvh, d, dtype=bf16)
+        kernel = lambda: flash_mod.flash_attention(q, k, v, causal=causal)
+        out = kernel()
+        err = max_err(out, ref.attention_ref(q, k, v, causal=causal))
+        if not err < TOL[bf16]:
+            fail(f"flash_attention at {arch} {what}: max err {err}")
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        flops = 4 * b * h * d * attn_pairs(sq, skv, causal, 0, 0)
+        bound_ms, bound_by = bound(nbytes, flops)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec = dict(arch=arch, what=what, shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 "
+                   f"causal={causal}", max_abs_err=err, ms=time_ms(kernel),
+                   plain_ms=time_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=5),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                   launches_per_generate=launches)
+        records["flash_attention"].setdefault("rows", []).append(rec)
+        phase("kernel", name="flash_attention", bytes=nbytes, flops=flops, **rec)
+        del q, k, v, out, qt, kt, vt
+    for arch, what, b, cache, h, kvh, d, (lo, hi), launches in decode_rows:
+        q = randn(b, h, d, dtype=bf16)
+        kc, vc = randn(b, cache, kvh, d, dtype=bf16), randn(b, cache, kvh, d, dtype=bf16)
+        gen = torch.Generator(device=q.device).manual_seed(1)
+        lens = torch.randint(lo, hi + 1, (b,), generator=gen, device=q.device,
+                             dtype=torch.int32)
+        kernel = lambda: dec_mod.decode_attention(q, kc, vc, lens)
+        out = kernel()
+        err = max_err(out, ref.decode_attention_ref(q, kc, vc, lens))
+        if not err < TOL[bf16]:
+            fail(f"decode_attention at {arch} {what}: max err {err}")
+        valid = int(lens.sum())
+        nbytes = 2 * (q.numel() + out.numel()) + 2 * 2 * valid * kvh * d + 4 * b
+        flops = 4 * h * d * valid
+        bound_ms, bound_by = bound(nbytes, flops)
+        mask = (torch.arange(cache, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+        q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        rec = dict(arch=arch, what=what, shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} "
+                   f"lengths {lo}..{hi} bf16", max_abs_err=err, ms=time_ms(kernel, iters=100),
+                   plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, lens), iters=20),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       q4, kt, vt, attn_mask=mask, enable_gqa=True), iters=100),
+                   launches_per_generate=launches)
+        records["decode_attention"].setdefault("rows", []).append(rec)
+        phase("kernel", name="decode_attention", bytes=nbytes, flops=flops, **rec)
+        del q, kc, vc, out, kt, vt, q4
+
+
 def attn_layers(cfg) -> int:
     return cfg.pattern().count(ATTN)
 
 
+def serve_case(arch: str) -> ServeCase:
+    return next(c for c in SERVE_ARCHS if c.arch == arch)
+
+
+def serve_launches(cfg, new: int) -> dict:
+    """Launches of each kernel in one ``generate`` of ``new`` tokens. A
+    decoder: one flash launch per attention layer at prefill, one decode
+    launch per attention layer and step. An encoder-decoder: the encoder's
+    layers and the decoder's self and cross attention at prefill, then a
+    decode launch (self) and a one-row flash launch (cross) per decoder layer
+    and step."""
+    steps = new - 1
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": cfg.num_encoder_layers + 2 * cfg.num_layers
+                + cfg.num_layers * steps, "decode_attention": cfg.num_layers * steps}
+    n_attn = attn_layers(cfg)
+    return {"flash_attention": n_attn, "decode_attention": n_attn * steps}
+
+
+def logit_batch(cfg, batch, prompt: int, rng) -> dict:
+    """The served batch cut to ``prompt`` tokens, with what serving leaves out:
+    random frames for the encoder-decoder; for the vlm, random patch
+    embeddings over the VISION_GRID x VISION_GRID grid that leads the prompt
+    and distinct M-RoPE streams (patch i at (0, i // grid, i % grid), the text
+    after it at grid + j on all three)."""
+    dev = batch["tokens"].device
+    b = batch["tokens"].shape[0]
+    out = {"tokens": batch["tokens"][:, :prompt]}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.frontend == "vision_stub":
+        n = VISION_GRID ** 2
+        out["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)).to(dev)
+        i = torch.arange(n, device=dev)
+        patches = torch.stack([torch.zeros_like(i), i // VISION_GRID, i % VISION_GRID], -1)
+        text = (VISION_GRID + torch.arange(prompt - n, device=dev))[:, None].expand(-1, 3)
+        out["positions"] = torch.cat([patches, text]).to(torch.int32)[None].expand(b, -1, -1)
+    return out
+
+
 def serve_arch_phase(dev: torch.device, records: dict) -> None:
     """Each of SERVE_ARCHS at full width through ``ModelServer.generate``, one
-    server at a time: launches held exactly (one flash launch per attention
-    layer, one decode launch per attention layer and step), the tokens sane,
-    the first-step logits held as [serve-logits] holds them; the MoE's and
-    the hybrid's prefill and decode step profiled."""
-    for arch, prompt, cache_len in SERVE_ARCHS:
-        cfg = get_config(arch)
+    server at a time: launches held exactly (``serve_launches``), the tokens
+    sane, the MoE's, the hybrids' and the encoder-decoder's prefill and decode
+    step profiled, then the first-step logits held as [serve-logits] holds
+    them, on the inputs ``logit_batch`` adds."""
+    for case in SERVE_ARCHS:
+        cfg = get_config(case.arch)
+        if case.layers:
+            cfg = dataclasses.replace(cfg, num_layers=case.layers)
         t0 = time.perf_counter()
-        srv = ModelServer(cfg, batch_size=BATCH, cache_len=cache_len, seed=0)
+        srv = ModelServer(cfg, batch_size=case.batch, cache_len=case.cache, seed=0)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         rng = np.random.default_rng(0)
-        prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size, prompt).astype(np.int32))
-                   for _ in range(BATCH)]
-        reqs = [Request(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+        prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size, case.prompt).astype(np.int32))
+                   for _ in range(case.batch)]
+        reqs = [Request(i, p, case.new) for i, p in enumerate(prompts)]
         srv.generate([Request(0, prompts[0], 2)])  # warm-up
         srv.stats = {"requests": 0, "tokens": 0, "decode_s": 0.0, "prefill_s": 0.0}
         torch.cuda.reset_peak_memory_stats()
@@ -774,40 +981,50 @@ def serve_arch_phase(dev: torch.device, records: dict) -> None:
         launches = {"flash_attention": flash_mod.KERNEL.launches,
                     "decode_attention": dec_mod.KERNEL.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        n_attn = attn_layers(cfg)
-        want = {"flash_attention": n_attn, "decode_attention": n_attn * (MAX_NEW - 1)}
+        want = serve_launches(cfg, case.new)
         if launches != want:
-            fail(f"serve-arch {arch}: launches {launches}, expected {want}")
+            fail(f"serve-arch {case.arch}: launches {launches}, expected {want}")
         for uid, toks in outs.items():
-            if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-                fail(f"serve-arch {arch} request {uid}: tokens {toks}")
+            if len(toks) != case.new or not all(0 <= t < cfg.vocab_size for t in toks):
+                fail(f"serve-arch {case.arch} request {uid}: tokens {toks}")
         for name, n in launches.items():
-            records[name]["launches_by_path"][f"serve-arch {arch}"] = n
-        window = min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
-        phase("serve-arch", arch=arch, layers=cfg.num_layers, attn_layers=n_attn,
+            records[name]["launches_by_path"][f"serve-arch {case.arch}"] = n
+        window = min(case.cache, cfg.attn_window) if cfg.attn_window else case.cache
+        full_depth = get_config(case.arch).num_layers
+        phase("serve-arch", arch=case.arch,
+              layers=cfg.num_layers if not case.layers else
+              f"{cfg.num_layers}_of_{full_depth}_(depth_cut:_one_80_GB_card)",
+              encoder_layers=cfg.num_encoder_layers, attn_layers=attn_layers(cfg),
               head_dim=cfg.hd(), heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
               params=sum(t.numel() for t in tree_leaves(srv.params)), init_s=f"{init_s:.2f}",
-              batch=BATCH, prompt=prompt, new=MAX_NEW, cache=cache_len, attn_cache_slots=window,
-              ring_roll=prompt >= window, prefill_ms=f"{srv.stats['prefill_s'] * 1e3:.2f}",
-              decode_ms_per_step=f"{srv.stats['decode_s'] * 1e3 / (MAX_NEW - 1):.2f}",
+              batch=case.batch, prompt=case.prompt, new=case.new, cache=case.cache,
+              attn_cache_slots=window, ring_roll=case.prompt >= window,
+              prefill_ms=f"{srv.stats['prefill_s'] * 1e3:.2f}",
+              decode_ms_per_step=f"{srv.stats['decode_s'] * 1e3 / (case.new - 1):.2f}",
               decode_tok_s=f"{srv.tokens_per_second():.1f}", peak_gib=f"{peak_gib:.2f}",
               launches=launches, first_tokens=outs[0][:8])
         batch = srv._batchify(reqs)
         token = torch.from_numpy(
-            rng.integers(1, cfg.vocab_size, (BATCH, 1)).astype(np.int32)).to(dev)
-        params, lcfg, fields = srv.params, cfg, {"arch": arch}
-        if cfg.num_experts:
-            lcfg = dataclasses.replace(cfg, num_layers=MOE_LOGIT_LAYERS)
-            params = {**srv.params, "stack": {"layers": srv.params["stack"]["layers"][
-                :MOE_LOGIT_LAYERS]}}
-            fields["layers"] = (f"{MOE_LOGIT_LAYERS}_of_{cfg.num_layers}_(depth_cut:_no_fp32_"
-                                "copy_of_all_layers_fits_beside_the_bf16_weights)")
-        hold_logits("serve-arch-logits", params, lcfg, batch, token, cache_len, **fields)
-        del params
-        if cfg.num_experts or cfg.block_pattern:  # the MoE's and the hybrid's
+            rng.integers(1, cfg.vocab_size, (case.batch, 1)).astype(np.int32)).to(dev)
+        if cfg.num_experts or cfg.block_pattern or cfg.is_encoder_decoder:
             for step, fn in profile_steps(srv, batch, token).items():
-                phase("serve-profile", arch=arch, step=step, **fn)
-        del srv, batch
+                phase("serve-profile", arch=case.arch, step=step, **fn)
+        batch = logit_batch(cfg, batch, case.logit_prompt or case.prompt, rng)
+        lcfg, fields = cfg, {"arch": case.arch}
+        params = srv.params
+        if case.logit_layers:
+            lcfg = dataclasses.replace(cfg, num_layers=case.logit_layers)
+            params = {**srv.params, "stack": {"layers": srv.params["stack"]["layers"][
+                :case.logit_layers]}}
+            fields["layers"] = (f"{case.logit_layers}_of_{full_depth}_(depth_cut:_an_fp32_"
+                                "copy_of_the_served_layers_outgrows_one_80_GB_card)")
+        if case.logit_prompt:
+            fields["prompt"] = f"{case.logit_prompt}_of_{case.prompt}"
+        del srv  # its other layers go; the fp32 copy replaces the rest leaf by leaf
+        torch.cuda.empty_cache()
+        hold_logits("serve-arch-logits", params, lcfg, batch, token, case.cache,
+                    in_place=True, **fields)
+        del params, batch
         torch.cuda.empty_cache()
 
 
@@ -893,12 +1110,13 @@ def serve_fleet_phase(dev: torch.device, records: dict | None = None) -> None:
           f"{GTDRL_COST_RTOL}")
 
 
-def fleet_smoke_phase(dev: torch.device) -> None:
-    """``Fleet([ARCH], 2)`` at its defaults (cfg.smoke(): head dim 16, fp32)
+def fleet_smoke_phase(dev: torch.device, arch: str = ARCH) -> None:
+    """``Fleet([arch], 2)`` at its defaults (cfg.smoke(): head dim 16, fp32)
     on the card: routed through both kernels, then one server's prefill and
-    first decode logits held against ``impl="ref"`` at the fp32 tolerance."""
+    first decode logits held against ``impl="ref"`` at the fp32 tolerance
+    (an encoder-decoder's on random frames)."""
     ar = np.array([[3.0, 1.0]], dtype=np.float32)
-    fleet = Fleet([ARCH], 2)
+    fleet = Fleet([arch], 2)
     srv = fleet.servers[(0, 0)]
     cfg = srv.cfg
     flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
@@ -906,27 +1124,23 @@ def fleet_smoke_phase(dev: torch.device) -> None:
     launches = (flash_mod.KERNEL.launches, dec_mod.KERNEL.launches)
     if report["dispatched"] != {(0, 0): 3, (0, 1): 1}:
         fail(f"fleet-smoke dispatched {report['dispatched']} for ar {ar.tolist()}")
-    if launches != (2 * cfg.num_layers, 2 * cfg.num_layers * 3):
-        fail(f"fleet-smoke launches {launches}")
+    want = serve_launches(cfg, 4)
+    if launches != (2 * want["flash_attention"], 2 * want["decode_attention"]):
+        fail(f"fleet-smoke {arch} launches {launches}")
     rng = np.random.default_rng(1)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(1, cfg.vocab_size, (srv.batch_size, 16)).astype(np.int32)).to(dev)}
+    batch = logit_batch(cfg, {"tokens": torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (srv.batch_size, 16)).astype(np.int32)).to(dev)}, 16, rng)
     token = torch.from_numpy(
         rng.integers(1, cfg.vocab_size, (srv.batch_size, 1)).astype(np.int32)).to(dev)
-    pos = torch.full((srv.batch_size, 1), 16, dtype=torch.int32, device=dev)
-    out = {}
-    for impl in ("auto", "ref"):
-        logits, cache = prefill_step(srv.params, batch, cfg=cfg, cache_len=srv.cache_len,
-                                     impl=impl)
-        dlogits, _ = decode_step(srv.params, token, pos, cache, cfg=cfg, impl=impl)
-        out[impl] = {"prefill": logits, "decode": dlogits}
+    out = {impl: first_logits(srv.params, cfg, batch, token, impl, srv.cache_len)
+           for impl in ("auto", "ref")}
     fields = {}
     for step in ("prefill", "decode"):
-        got, want = out["auto"][step], out["ref"][step]
-        rel, err = rel_norm(got, want), max_err(got, want)
+        got, want_ = out["auto"][step], out["ref"][step]
+        rel, err = rel_norm(got, want_), max_err(got, want_)
         if not (torch.isfinite(got).all() and rel <= FP32_LOGIT_RTOL
                 and err <= FP32_LOGIT_ATOL):
-            fail(f"fleet-smoke {step} logits: kernel vs ref relative norm {rel}, "
+            fail(f"fleet-smoke {arch} {step} logits: kernel vs ref relative norm {rel}, "
                  f"max |diff| {err}")
         fields[f"{step}_rel_norm"] = f"{rel:.3g}"
         fields[f"{step}_max_abs"] = f"{err:.3g}"

@@ -2,9 +2,8 @@
 
 The port keeps its own copy so that it imports nothing of ``repro``. Every
 field is kept, so ``dataclasses.replace`` takes the same arguments in both
-packages; the model code rejects the features the port does not run yet.
-``param_count`` sizes the ``llm`` workload's model families
-(``dcsim.capability``), including archs the model code does not run.
+packages. ``param_count`` sizes the ``llm`` workload's model families
+(``dcsim.capability``).
 """
 from __future__ import annotations
 

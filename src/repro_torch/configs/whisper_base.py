@@ -1,6 +1,6 @@
 """whisper-base [audio]: enc-dec transformer backbone (arXiv:2212.04356).
 
-Conv audio frontend is a stub: input_specs() provides (B, 1500, 512) frame
+Conv audio frontend is a stub: a batch's ``frames`` are the (B, 1500, 512) frame
 embeddings. 6L encoder + 6L decoder, MHA (kv=8), LayerNorm + GELU.
 """
 from .base import ModelConfig

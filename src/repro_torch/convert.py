@@ -3,10 +3,13 @@
 The caller turns the JAX pytree into numpy arrays first
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module imports no
 JAX. Dense weights keep their (d_in, d_out) layout, since the port applies
-them as ``x @ w`` too. The stack becomes a list of per-layer dicts, from the
-scanned ``stack/layers`` subtree of a uniform stack (leaves with a leading
-``num_layers`` axis, stacked MoE experts included) or from the unrolled
-``stack/blocks/{"0", "1", ...}`` of a hybrid one.
+them as ``x @ w`` too. A decoder's stack becomes a list of per-layer dicts,
+from the scanned ``stack/layers`` subtree of a uniform stack (leaves with a
+leading ``num_layers`` axis, stacked MoE experts and arctic's dense residual
+included) or from the unrolled ``stack/blocks/{"0", "1", ...}`` of a hybrid
+one (RG-LRU, mLSTM and sLSTM blocks). An encoder-decoder tree (whisper) keeps
+the reference's layout: ``embed``, ``pos_embed``, ``enc/{i}``, ``enc_norm``,
+``dec/{i}``, ``dec_norm``.
 ``env_from_numpy`` carries an ``EnvParams`` across, so that both packages can
 be held on the same env, including one the JAX package's scenario transforms
 made. ``agents_from_jax`` and ``tree_from_jax`` carry the learning solvers'
@@ -38,6 +41,8 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """Port parameters, on ``device``, from a numpy copy of ``repro.models.model.init(...)``'s
     tree. They go to the card unless the caller asks for the CPU."""
     device = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return _encdec_from_jax(tree, cfg, device)
     stack = tree.get("stack", {})
     top = {"embed", "stack", "final_norm"} | ({"head"} if "head" in tree else set())
     blocks = [str(i) for i in range(cfg.num_layers)]
@@ -64,6 +69,26 @@ def params_from_jax(tree: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     out = {name: torch_tree(tree[name]) for name in sorted(top - {"stack"})}
     out["stack"] = {"layers": layers}
     return out
+
+
+ENC_BLOCK = {"norm1", "attn", "norm2", "mlp"}
+DEC_BLOCK = {"norm1", "self_attn", "norm_x", "cross_attn", "norm2", "mlp"}
+
+
+def _encdec_from_jax(tree: Dict[str, Any], cfg, device) -> Dict[str, Any]:
+    """An encoder-decoder tree, checked for the reference's layout, leaf by leaf."""
+    enc, dec = tree.get("enc", {}), tree.get("dec", {})
+    if (set(tree) != {"embed", "pos_embed", "enc", "enc_norm", "dec", "dec_norm"}
+            or sorted(enc) != sorted(str(i) for i in range(cfg.num_encoder_layers))
+            or sorted(dec) != sorted(str(i) for i in range(cfg.num_layers))
+            or any(set(b) != ENC_BLOCK for b in enc.values())
+            or any(set(b) != DEC_BLOCK for b in dec.values())):
+        raise ValueError(
+            "expected an encoder-decoder parameter tree of embed, pos_embed, enc blocks "
+            f"'0'..'{cfg.num_encoder_layers - 1}' of {sorted(ENC_BLOCK)}, enc_norm, dec "
+            f"blocks '0'..'{cfg.num_layers - 1}' of {sorted(DEC_BLOCK)} and dec_norm, got "
+            f"keys {sorted(tree)}")
+    return tree_map(lambda a: _to_torch(a, device), tree)
 
 
 def env_from_numpy(fields: Dict[str, np.ndarray], device="cuda"):

@@ -54,7 +54,15 @@ class ModelServer:
     def _batchify(self, reqs: List[Request]) -> Dict[str, torch.Tensor]:
         maxlen = max(int(r.prompt.shape[0]) for r in reqs)
         toks = torch.stack([F.pad(r.prompt, (0, maxlen - r.prompt.shape[0])) for r in reqs])
-        return {"tokens": toks.to(device=self.device, dtype=torch.int32)}
+        batch = {"tokens": toks.to(device=self.device, dtype=torch.int32)}
+        b, s = toks.shape
+        if self.cfg.rope_mode == "mrope":  # text only: the three streams equal
+            batch["positions"] = torch.arange(s, dtype=torch.int32, device=self.device)[
+                None, :, None].expand(b, s, 3)
+        if self.cfg.is_encoder_decoder:  # the stub frontend's frames: zeros, as the reference's
+            batch["frames"] = torch.zeros((b, self.cfg.encoder_seq, self.cfg.d_model),
+                                          dtype=torch.float32, device=self.device)
+        return batch
 
     def generate(self, reqs: List[Request]) -> Dict[int, List[int]]:
         """Prefill all prompts, then decode max_new tokens, batched."""
@@ -79,6 +87,8 @@ class ModelServer:
             if step == max_new - 1:
                 break
             pos = torch.full((b, 1), s + step, dtype=torch.int32, device=self.device)
+            if self.cfg.rope_mode == "mrope":
+                pos = pos[..., None].expand(b, 1, 3)
             logits, cache = decode_step(self.params, token, pos, cache, cfg=self.cfg)
             token = torch.argmax(logits, dim=-1).to(torch.int32)[:, :1]
         self.stats["decode_s"] += self._clock() - t0

@@ -1,4 +1,4 @@
-"""GQA self-attention block (full sequence / prefill / decode).
+"""GQA self-attention (full sequence / prefill / decode) and cross attention.
 
 The attention core goes through ``repro_torch.kernels.ops``: the CUDA kernels
 for CUDA tensors, their plain versions for CPU tensors. A layer's KV cache is
@@ -14,7 +14,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..kernels import ops
-from .layers import DTYPES, Params, apply_rope, dense, dense_init
+from .layers import DTYPES, Params, apply_mrope, apply_rope, dense, dense_init
 
 
 def attn_init(gen: torch.Generator, cfg) -> Params:
@@ -28,6 +28,18 @@ def attn_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
+def _apply_positional(cfg, q, k, positions):
+    """RoPE on positions (B, S), M-RoPE on (B, S, 3), or nothing (``rope_mode``
+    ``none``: whisper's positions are added to its embeddings instead)."""
+    if cfg.rope_mode == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_mode == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k
+
+
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """Project x (B, S, D) to rotated q (B, S, H, hd), rotated k and v (B, S, KVH, hd)."""
     b, s, _ = x.shape
@@ -35,8 +47,7 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     q = dense(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
     k = dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
     v = dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _apply_positional(cfg, q, k, positions)
     return q, k, v
 
 
@@ -66,7 +77,7 @@ def attn_decode(p: Params, cfg, x, positions, cache: Dict[str, Any], *,
                 window: int = 0, impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode against the cache, which is updated in place.
 
-    x: (B, 1, D); positions (B, 1). Without a window the slot is
+    x: (B, 1, D); positions (B, 1), or (B, 1, 3) under M-RoPE. Without a window the slot is
     ``min(pos, L - 1)``: past the cache's end every step overwrites the last
     slot, as the JAX package's clamped ``dynamic_update_slice`` does. With a
     window the cache is a rolling buffer and the slot is ``pos % L``.
@@ -85,6 +96,27 @@ def attn_decode(p: Params, cfg, x, positions, cache: Dict[str, Any], *,
                              softcap=cfg.attn_logit_softcap, impl=impl)  # (B, H, hd)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     return dense(p["wo"], o.reshape(b, 1, cfg.q_dim())), new_cache
+
+
+def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
+                     enc_kv: Tuple[torch.Tensor, torch.Tensor], *,
+                     impl: str = "auto") -> torch.Tensor:
+    """Encoder-decoder cross attention of x (B, S, D) over the precomputed
+    encoder k, v (B, Se, KVH, hd): the flash path without a mask, at decode
+    too (S = 1), as the reference's."""
+    b, s, _ = x.shape
+    q = dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.hd())
+    k, v = enc_kv
+    o = ops.attention(q, k, v, causal=False, window=0, impl=impl)
+    return dense(p["wo"], o.reshape(b, s, cfg.q_dim()))
+
+
+def cross_kv(p: Params, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's k, v (B, Se, KVH, hd) of the encoder output (B, Se, D)."""
+    b, se, _ = enc_out.shape
+    k = dense(p["wk"], enc_out).reshape(b, se, cfg.num_kv_heads, cfg.hd())
+    v = dense(p["wv"], enc_out).reshape(b, se, cfg.num_kv_heads, cfg.hd())
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Core layers: initialization helpers, norms, embeddings, RoPE.
+"""Core layers: initialization helpers, norms, embeddings, RoPE / M-RoPE.
 
 As in ``repro.models.layers``, a "module" is a pair of plain functions,
 ``*_init(...) -> params`` and ``apply(params, x, ...) -> y``, over nested
@@ -7,7 +7,8 @@ dicts of tensors. Dense weights keep the (d_in, d_out) layout and apply as
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,20 +60,32 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
-def norm_init(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def norm_init(d: int, kind: str, dtype, device) -> Params:
+    p: Params = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm, computed in fp32 and cast back to the input's dtype."""
+def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm (biased variance, the reference's eps for both),
+    computed in fp32 and cast back to the input's dtype."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+    else:  # layernorm
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
     return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + multimodal M-RoPE), fixed sinusoids
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -88,12 +101,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, x.device)
-    ang = positions[..., None].float() * inv  # (B, S, hd/2)
+    return _rotate(x, positions[..., None].float() * inv)  # angles (B, S, hd/2)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the half-split pairs of x (B, S, heads, hd) by ang (B, S, hd/2)."""
     sin = torch.sin(ang)[..., None, :]  # broadcast over heads
     cos = torch.cos(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): three position streams (t, h, w) rotate
+    disjoint sections of the frequency pairs.
+
+    x: (B, S, heads, head_dim); positions: (B, S, 3) integer ids. ``sections``
+    are sizes in pairs summing to head_dim // 2: pair j takes its angle from
+    the stream whose section holds j.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim // 2 = {hd // 2}")
+    inv = rope_freqs(hd, theta, x.device)
+    pos = positions.float()
+    pos = torch.cat([pos[..., i:i + 1].expand(*pos.shape[:-1], n)
+                     for i, n in enumerate(sections)], dim=-1)  # (B, S, hd/2)
+    return _rotate(x, pos * inv)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, shape (seq, d), fp32: sin on
+    the even columns, cos on the odd."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-math.log(10000.0)
+                    * torch.arange(0, d, 2, dtype=torch.float32, device=device) / d)
+    ang = pos * div
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,16 @@
-"""Model interface: init / forward / prefill / decode for the dense, MoE and hybrid LMs.
+"""Model interface: init / forward / prefill / decode for every architecture.
 
-``batch`` dicts hold ``{"tokens": (B, S) int32[, "positions": (B, S)]}``.
+``batch`` dicts:
+
+* LMs: ``{"tokens": (B, S) int32[, "positions": (B, S), or (B, S, 3) under
+  M-RoPE]}``;
+* vlm: also ``{"vision_embeds": (B, Sv, D)}``, patch embeddings (a stub
+  frontend) that overwrite the first Sv token embeddings;
+* audio (encoder-decoder): ``{"frames": (B, Se, D), "tokens": (B, S)}``,
+  the stubbed conv frontend's frames and the decoder's tokens.
+
 Decode: ``decode_step(params, cfg, token, positions, cache)`` takes one new
-token per sequence against the per-layer caches that ``prefill`` returns.
+token per sequence against the caches that ``prefill`` returns.
 ``impl`` picks the attention path (see ``kernels/ops.py``).
 """
 from __future__ import annotations
@@ -12,7 +20,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, transformer
 from .layers import DTYPES, Params, apply_norm, embed, embed_init, norm_init, unembed
 
 
@@ -32,60 +40,92 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     draws differ from ``repro``'s ``jax.random`` ones; parity tests carry the
     JAX parameters over with ``repro_torch.convert.params_from_jax``.
     """
-    transformer.check_supported(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return encdec.encdec_init(gen, cfg)
     pdt = DTYPES[cfg.param_dtype]
     p: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pdt),
         "stack": transformer.stack_init(gen, cfg),
-        "final_norm": norm_init(cfg.d_model, pdt, gen.device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, pdt, gen.device),
     }
     if not cfg.tie_embeddings:
         p["head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, pdt)
     return p
 
 
-def _positions(batch: Dict[str, Any]) -> torch.Tensor:
+def _positions(cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
     if "positions" in batch:
         return batch["positions"]
     tokens = batch["tokens"]
     b, s = tokens.shape
-    return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.rope_mode == "mrope" else pos
 
 
-def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = embed(p["embed"], tokens).to(DTYPES[cfg.dtype])
+def _embed_inputs(p: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
+    x = embed(p["embed"], batch["tokens"]).to(DTYPES[cfg.dtype])
+    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
     return x * (cfg.d_model ** 0.5) if cfg.family == "hybrid" else x  # gemma scaling
 
 
-def _logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return unembed(p["head"] if "head" in p else p["embed"], apply_norm(p["final_norm"], x))
+def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(p["final_norm"], x, cfg.norm)
+    return unembed(p["head"] if "head" in p else p["embed"], x)
+
+
+def _encode(p: Params, cfg: ModelConfig, batch: Dict[str, Any], impl: str) -> torch.Tensor:
+    return encdec.encode(p, cfg, batch["frames"].to(DTYPES[cfg.dtype]), impl=impl)
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B, S, V), the MoE's aux loss)."""
-    x = _embed_tokens(p, cfg, batch["tokens"])
-    x, aux = transformer.stack_apply(p["stack"], cfg, x, _positions(batch), impl=impl)
-    return _logits(p, x), aux
+    if cfg.is_encoder_decoder:
+        logits = encdec.decode_train(p, cfg, batch["tokens"], _encode(p, cfg, batch, impl),
+                                     impl=impl)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    x = _embed_inputs(p, cfg, batch)
+    x, aux = transformer.stack_apply(p["stack"], cfg, x, _positions(cfg, batch), impl=impl)
+    return _logits(p, cfg, x), aux
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, *,
             impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """Run the prompt; return (last-position logits (B, 1, V), per-layer caches)."""
-    x = _embed_tokens(p, cfg, batch["tokens"])
+    """Run the prompt; return (last-position logits (B, 1, V), per-layer caches).
+
+    An encoder-decoder model returns the teacher-forced decoder's last logits
+    with its self-attention caches empty (``pos`` 0), as the reference does:
+    the first decode step then attends to itself alone, at learned position
+    ``S``. Only the cross attention's k, v are filled.
+    """
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(p, cfg, batch, impl)
+        caches = encdec.init_dec_cache(p, cfg, enc_out, batch["tokens"].shape[0], cache_len,
+                                       DTYPES[cfg.dtype])
+        logits = encdec.decode_train(p, cfg, batch["tokens"], enc_out, impl=impl)
+        return logits[:, -1:], caches
+    x = _embed_inputs(p, cfg, batch)
     caches = transformer.init_cache(cfg, x.shape[0], cache_len, device=x.device)
-    x, caches = transformer.stack_prefill(p["stack"], cfg, x, _positions(batch), caches,
+    x, caches = transformer.stack_prefill(p["stack"], cfg, x, _positions(cfg, batch), caches,
                                           impl=impl)
-    return _logits(p, x[:, -1:]), caches
+    return _logits(p, cfg, x[:, -1:]), caches
 
 
 def decode_step(p: Params, cfg: ModelConfig, token: torch.Tensor, positions: torch.Tensor,
                 cache: List[Dict[str, Any]], *,
                 impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """token (B, 1) int32; positions (B, 1). The KV caches are updated in place; a
-    recurrent layer's state is replaced by the one returned."""
-    x = _embed_tokens(p, cfg, token)
+    """token (B, 1) int32; positions (B, 1), or (B, 1, 3) under M-RoPE (an
+    encoder-decoder model reads the first stream). The KV caches are updated
+    in place; a recurrent layer's state is replaced by the one returned."""
+    if cfg.is_encoder_decoder:
+        pos = positions[..., 0] if positions.ndim == 3 else positions
+        return encdec.decode_step(p, cfg, token, pos, cache, impl=impl)
+    x = embed(p["embed"], token).to(DTYPES[cfg.dtype])
+    if cfg.family == "hybrid":
+        x = x * (cfg.d_model ** 0.5)
     x, cache = transformer.stack_decode(p["stack"], cfg, x, positions, cache, impl=impl)
-    return _logits(p, x), cache
+    return _logits(p, cfg, x), cache

@@ -1,10 +1,12 @@
 """Mixture-of-Experts FFN: top-k routing with capacity, from ``repro.models.moe``.
 
 Routing is a softmax over the experts in fp32, the top k of it (in descending
-order, as ``jax.lax.top_k``) renormalized. Each (token, choice) pair takes the
-next slot of its expert in (token, choice) order, an exclusive cumulative
+order, as ``jax.lax.top_k``) renormalized. Each (token, choice) pair takes
+the next slot of its expert in (token, choice) order, an exclusive cumulative
 count; pairs past the expert's capacity ``ceil(T k cf / E)`` are dropped and
-lose that expert's contribution. Two dispatch forms, as in the reference:
+lose that expert's contribution. Shared experts (qwen2-moe) and a dense
+residual MLP (arctic) add to the routed output. Two dispatch forms, as in the
+reference:
 
 * ``gather`` (the default): the kept pairs scatter their token index into an
   (E, C) slot table, the experts run as batched products over (E, C, d), and
@@ -35,21 +37,28 @@ def moe_init(gen: torch.Generator, cfg) -> Params:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     std = 1.0 / math.sqrt(d)
 
-    def stack(shape):
-        w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-        torch.nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
-        return (w * std).to(dt)
+    def stack(shape, scale=1.0):
+        # one expert at a time, so that no fp32 copy of the whole stack is
+        # made (arctic-480b's is 17.8 GB a layer)
+        out = torch.empty(shape, dtype=dt, device=gen.device)
+        w = torch.empty(shape[1:], dtype=torch.float32, device=gen.device)
+        for i in range(shape[0]):
+            torch.nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
+            out[i] = (w * std).to(dt) * scale
+        return out
 
     p: Params = {
         "router": dense_init(gen, d, e, torch.float32),
         "experts": {
             "w_in": {"w": stack((e, d, f))},
             "w_gate": {"w": stack((e, d, f))},
-            "w_out": {"w": stack((e, f, d)) * (1.0 / max(1, cfg.num_layers) ** 0.5)},
+            "w_out": {"w": stack((e, f, d), 1.0 / max(1, cfg.num_layers) ** 0.5)},
         },
     }
     if cfg.num_shared_experts:
         p["shared"] = mlp_init(gen, cfg, d_ff=(cfg.shared_d_ff or f) * cfg.num_shared_experts)
+    if cfg.moe_dense_residual:
+        p["dense"] = mlp_init(gen, cfg, d_ff=cfg.moe_dense_d_ff or f)
     return p
 
 
@@ -130,6 +139,8 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
     y = y2d.reshape(b, s, d)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], cfg, x)
+    if "dense" in p:  # arctic's dense residual, beside the experts
+        y = y + mlp_apply(p["dense"], cfg, x)
     return y.to(x.dtype), aux
 
 

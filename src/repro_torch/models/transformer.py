@@ -1,12 +1,14 @@
 """Decoder-only stack of mixed block kinds, and its caches.
 
 Block kinds come from ``cfg.pattern()``: ``ATTN`` (self attention, then an
-MLP or a mixture of experts) and ``RECUR`` (the RG-LRU block, then an MLP).
-The JAX package scans the stacked layers of a uniform attention stack and
-unrolls the hybrid ones; here every stack is one list of per-layer parameter
-dicts, and the cache one list of per-layer cache dicts (a KV cache for an
-attention layer, ``{"h", "conv_buf"}`` for a recurrent one), walked by a
-Python loop beside ``cfg.pattern()``.
+MLP or a mixture of experts), ``RECUR`` (the RG-LRU block, then an MLP),
+``MLSTM`` and ``SLSTM`` (the xLSTM blocks, which carry their own up and down
+projections). The JAX package scans the stacked layers of a uniform
+attention stack and unrolls the others; here every stack is one list of
+per-layer parameter dicts, and the cache one list of per-layer cache dicts
+(a KV cache for an attention layer, ``{"h", "conv_buf"}`` for an RG-LRU one,
+``{"C", "n", "m", "conv_buf"}`` for an mLSTM one, ``{"c", "n", "h", "m"}``
+for an sLSTM one), walked by a Python loop beside ``cfg.pattern()``.
 """
 from __future__ import annotations
 
@@ -20,24 +22,8 @@ from . import moe as moe_mod
 from .layers import DTYPES, Params, apply_norm, norm_init
 from .mlp import mlp_apply, mlp_init
 from .rglru import rglru_apply, rglru_decode, rglru_init, rglru_state_init
-
-
-def check_supported(cfg) -> None:
-    """Raise for an architecture feature the port does not run yet, with its ROADMAP item."""
-    kinds = set(cfg.pattern())
-    unported = {
-        "mLSTM / sLSTM blocks (ROADMAP A.10.6)": bool(kinds & {MLSTM, SLSTM}),
-        "encoder-decoder (ROADMAP A.10.7)": cfg.is_encoder_decoder,
-        "LayerNorm (ROADMAP A.10.7)": cfg.norm != "rmsnorm",
-        "a positional mode other than rope (ROADMAP A.10.7)": cfg.rope_mode not in ("rope",
-                                                                                   "mrope"),
-        "M-RoPE (ROADMAP A.10.8)": cfg.rope_mode == "mrope",
-        "a frontend stub (ROADMAP A.10.8)": cfg.frontend != "none",
-        "moe_dense_residual (ROADMAP A.10.8)": cfg.moe_dense_residual,
-    }
-    missing = [what for what, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: the port does not run {', '.join(missing)} yet")
+from .xlstm import (mlstm_apply, mlstm_decode, mlstm_init, mlstm_state_init, slstm_apply,
+                    slstm_decode, slstm_init, slstm_state_init)
 
 
 def _layer_window(cfg, kind: str) -> int:
@@ -51,10 +37,10 @@ def _layer_window(cfg, kind: str) -> int:
 
 def block_init(gen: torch.Generator, cfg, kind: str) -> Params:
     pdt = DTYPES[cfg.param_dtype]
-    p: Params = {"norm1": norm_init(cfg.d_model, pdt, gen.device)}
+    p: Params = {"norm1": norm_init(cfg.d_model, cfg.norm, pdt, gen.device)}
     if kind == ATTN:
         p["attn"] = attn.attn_init(gen, cfg)
-        p["norm2"] = norm_init(cfg.d_model, pdt, gen.device)
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, pdt, gen.device)
         if cfg.num_experts:
             p["moe"] = moe_mod.moe_init(gen, cfg)
         elif cfg.d_ff:
@@ -62,10 +48,14 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> Params:
     elif kind == RECUR:
         p["recur"] = rglru_init(gen, cfg)
         if cfg.d_ff:
-            p["norm2"] = norm_init(cfg.d_model, pdt, gen.device)
+            p["norm2"] = norm_init(cfg.d_model, cfg.norm, pdt, gen.device)
             p["mlp"] = mlp_init(gen, cfg)
+    elif kind == MLSTM:
+        p["mlstm"] = mlstm_init(gen, cfg)
+    elif kind == SLSTM:
+        p["slstm"] = slstm_init(gen, cfg)
     else:
-        raise ValueError(f"block kind {kind!r} is not ported")
+        raise ValueError(f"unknown block kind {kind!r}")
     return p
 
 
@@ -74,46 +64,59 @@ def _ffn(p: Params, cfg, x: torch.Tensor,
     """x plus the block's MLP or MoE of norm2(x), and the MoE's aux loss."""
     if "moe" in p:
         moe_fn = moe_mod.moe_apply_ep if cfg.moe_impl == "ep" else moe_mod.moe_apply
-        y, aux = moe_fn(p["moe"], cfg, apply_norm(p["norm2"], x),
+        y, aux = moe_fn(p["moe"], cfg, apply_norm(p["norm2"], x, cfg.norm),
                         capacity_factor=capacity_factor)
         return x + y, aux
     if "mlp" in p:
-        x = x + mlp_apply(p["mlp"], cfg, apply_norm(p["norm2"], x))
+        x = x + mlp_apply(p["mlp"], cfg, apply_norm(p["norm2"], x, cfg.norm))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor, *,
                 impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / no-cache forward of one block. Returns (x, aux loss)."""
-    h = apply_norm(p["norm1"], x)
+    h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == ATTN:
         x = x + attn.attn_apply(p["attn"], cfg, h, positions, causal=True,
                                 window=_layer_window(cfg, kind), impl=impl)
-    else:
+    elif kind == RECUR:
         x = x + rglru_apply(p["recur"], cfg, h)
+    elif kind == MLSTM:
+        x = x + mlstm_apply(p["mlstm"], cfg, h)
+    else:
+        x = x + slstm_apply(p["slstm"], cfg, h)
     return _ffn(p, cfg, x)
 
 
 def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
-    """Forward that also fills this layer's decode cache."""
-    h = apply_norm(p["norm1"], x)
+    """Forward that also fills this layer's decode cache. An sLSTM layer steps
+    over the prompt from its state ``cache``, as the reference's scan does."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == ATTN:
         y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
                                          window=_layer_window(cfg, kind), impl=impl)
-    else:
+    elif kind == RECUR:
         y, new_cache = rglru_apply(p["recur"], cfg, h, return_state=True)
+    elif kind == MLSTM:
+        y, new_cache = mlstm_apply(p["mlstm"], cfg, h, return_state=True)
+    else:
+        y, new_cache = slstm_apply(p["slstm"], cfg, h, state0=cache, return_state=True)
     x, _ = _ffn(p, cfg, x + y)
     return x, new_cache
 
 
 def block_decode(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
     """One-token step. x (B, 1, D)."""
-    h = apply_norm(p["norm1"], x)
+    h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == ATTN:
         y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
                                         window=_layer_window(cfg, kind), impl=impl)
-    else:
+    elif kind == RECUR:
         y, new_cache = rglru_decode(p["recur"], cfg, h, cache)
+    elif kind == MLSTM:
+        y, new_cache = mlstm_decode(p["mlstm"], cfg, h, cache)
+    else:
+        y, new_cache = slstm_decode(p["slstm"], cfg, h, cache)
     x, _ = _ffn(p, cfg, x + y, capacity_factor=2.0)
     return x, new_cache
 
@@ -167,7 +170,8 @@ def _attn_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> Dict[str
 
 def init_cache(cfg, batch: int, cache_len: int, *, device,
                dtype: Optional[torch.dtype] = None) -> List[Dict[str, Any]]:
-    """One zeroed cache per layer, by its kind."""
+    """One empty cache per layer, by its kind."""
     dtype = dtype or DTYPES[cfg.dtype]
+    state_init = {RECUR: rglru_state_init, MLSTM: mlstm_state_init, SLSTM: slstm_state_init}
     return [_attn_cache_init(cfg, batch, cache_len, dtype, device) if kind == ATTN
-            else rglru_state_init(cfg, batch, dtype, device=device) for kind in cfg.pattern()]
+            else state_init[kind](cfg, batch, dtype, device=device) for kind in cfg.pattern()]

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
 The cases are ``chip_smoke.py``'s: those of ``tests/test_kernels.py`` plus
-softcap, ``q_offset``, ragged-tile and explicit-length cases, and head dims
-16 (fp32) and 256 (both dtypes; recurrentgemma-9b's MQA)
+softcap, ``q_offset``, ragged-tile, one-query-row and explicit-length cases,
+head dims 16 (fp32) and 256 (both dtypes; recurrentgemma-9b's MQA), and
+whisper-base's non-causal shapes at its serving batch
 (``tests/test_torch_kernels.py`` checks that the copies agree). This file imports no JAX, so it runs on a GPU machine
 without it:
 
@@ -169,6 +170,23 @@ def test_decode_kernel_head_dim_256(cuda, case, dtype):
 @pytest.mark.parametrize("case", chip_smoke.DECODE_LENGTH_CASES_D256)
 def test_decode_kernel_head_dim_256_explicit_lengths(cuda, case, dtype):
     test_decode_kernel_explicit_lengths(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.FLASH_CASES_WHISPER)
+def test_flash_kernel_whisper_shapes(cuda, case, dtype):
+    """whisper-base's encoder and cross attention at its serving batch: non-causal,
+    Skv = 1500 (not a multiple of the key tile), one or four query rows or 1500."""
+    test_flash_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+def test_smoke_whisper_fleet_serves_on_the_card(cuda):
+    """``Fleet(["whisper-base"], 2)`` at smoke width through both kernels (the
+    cross attention's flash call with one query row at decode), its logits
+    those of ``impl="ref"``."""
+    chip_smoke.fleet_smoke_phase(cuda, "whisper-base")
 
 
 @pytest.mark.cuda

@@ -31,7 +31,7 @@ from repro_torch.dcsim import capability as TC
 from repro_torch.dcsim import env as TE
 from repro_torch.dcsim import latency as TL
 from repro_torch.dcsim import workload as TW
-from repro_torch.launch.serve import ModelServer
+from repro_torch.launch.serve import ModelServer, Request
 
 RTOL = 1e-5
 
@@ -138,23 +138,17 @@ def test_configs_and_param_count_equal_reference(arch):
         assert tcfg.param_count(active_only) == jcfg.param_count(active_only)
 
 
-# the llm workload's archs that the port's model code serves, and the ROADMAP
-# item of each it does not run yet
-SERVED_LLM_ARCHS = ("qwen2-7b", "qwen2-moe-a2.7b", "mistral-large-123b")
-UNPORTED_ITEM = {"arctic-480b": "A.10.8", "whisper-base": "A.10.7"}
-
-
-@pytest.mark.parametrize("arch", LLM_ARCHS)
-def test_model_server_rejects_unported_archs(arch):
-    """These configs size the simulated fleet. The model code serves
-    qwen2-7b, qwen2-moe-a2.7b and mistral-large-123b; it refuses the others,
-    naming their ROADMAP item."""
+# the llm workload's model families, each sized on one of the registry's archs
+@pytest.mark.parametrize("arch", [prof.arch for _, prof in TC.LLM_FAMILIES])
+def test_model_server_serves_every_llm_family(arch):
+    """A server of every family the scheduler dispatches to builds and
+    generates on the CPU at smoke width."""
     cfg = get_config(arch).smoke()
-    if arch in SERVED_LLM_ARCHS:
-        assert ModelServer(cfg, device="cpu").params["stack"]["layers"]
-        return
-    with pytest.raises(NotImplementedError, match=f"does not run.*{UNPORTED_ITEM[arch]}"):
-        ModelServer(cfg, device="cpu")
+    srv = ModelServer(cfg, batch_size=2, cache_len=32, device="cpu")
+    outs = srv.generate([Request(0, torch.arange(1, 7, dtype=torch.int32), 3),
+                         Request(1, torch.arange(2, 6, dtype=torch.int32), 2)])
+    assert [len(outs[0]), len(outs[1])] == [3, 2]
+    assert all(0 <= t < cfg.vocab_size for toks in outs.values() for t in toks)
 
 
 def test_env_batch_helpers_equal_reference():

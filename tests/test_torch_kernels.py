@@ -44,6 +44,11 @@ FLASH_PARAMS = [(b, s, s, h, kvh, d, causal, window, 0.0, 0)
     (1, 96, 320, 4, 1, 32, True, 64, 25.0, 224),   # q_offset + window + softcap, MQA
     (1, 100, 100, 4, 2, 64, True, 0, 0.0, 0),      # Sq, Skv not multiples of 16
     (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),    # non-causal, D=128, partial KV tile
+    # non-causal with one or four query rows over a partial KV tile: the cross
+    # attention of an encoder-decoder at decode and over its prompt
+    (2, 1, 100, 4, 4, 64, False, 0, 0.0, 0),
+    (3, 4, 150, 8, 2, 64, False, 0, 0.0, 0),
+    (2, 1, 70, 8, 1, 128, False, 0, 0.0, 0),
 ]
 # (b, s, h, kvh, d, softcap)
 DECODE_PARAMS = [case + (0.0,) for case in DECODE_CASES] + [(2, 512, 8, 2, 64, 25.0)]

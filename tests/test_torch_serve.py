@@ -22,24 +22,28 @@ import pytest
 # the port needs torch; the imports below need the port (hence the E402 waiver)
 torch = pytest.importorskip("torch")
 
+from repro import configs as jax_config_registry
 from repro.configs import get_config as jax_get_config
 from repro.launch.serve import Fleet as JaxFleet
 from repro.launch.serve import ModelServer as JaxServer
 from repro.launch.serve import Request as JaxRequest
 from repro.models import model as jax_model
+from repro.models import moe as jax_moe
+from repro_torch import configs as config_registry
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as serve_mod
-from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.serve import Fleet, ModelServer, Request
 from repro_torch.models import model as torch_model
 from repro_torch.models import moe as torch_moe
 
 ARCH = "llama3.2-1b"
-# the archs this slice adds: dense, dense with an untied head, MoE, hybrid
+# the archs beyond llama3.2-1b: dense, dense with an untied head, MoE, hybrid,
+# xLSTM, encoder-decoder, vision-language (M-RoPE), MoE with a dense residual.
 # mistral-large-123b needs no code of its own; it is held at smoke width only
 NEW_ARCHS = ["llama3.2-3b", "qwen2-7b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
-             "mistral-large-123b"]
+             "mistral-large-123b", "xlstm-125m", "whisper-base", "qwen2-vl-72b",
+             "arctic-480b"]
 # the reference's examples/serve_fleet.py fleet: dense, MoE, hybrid
 FLEET_ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-9b"]
 ATOL = RTOL = 1e-4
@@ -69,8 +73,9 @@ def test_config_copy_matches_jax(smoke):
     if smoke:
         jcfg, tcfg = jcfg.smoke(), tcfg.smoke()
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    with pytest.raises(KeyError, match=ARCH):
-        get_config("xlstm-125m")
+    assert list(config_registry._ARCH_MODULES) == list(jax_config_registry.ARCHS)
+    with pytest.raises(KeyError, match="no-such-arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
@@ -206,7 +211,7 @@ def test_model_entry_points_without_cuda_raise(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the MoE, hybrid and untied-head archs
+# the other archs of the registry
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module", params=NEW_ARCHS)
@@ -215,6 +220,51 @@ def arch_pair(request):
     jcfg, tcfg = jax_get_config(request.param).smoke(), get_config(request.param).smoke()
     jparams = jax_model.init(jax.random.PRNGKey(0), jcfg)
     return jcfg, tcfg, jparams, params_from_jax(_numpy_tree(jparams), tcfg, device="cpu")
+
+
+VISION_GRID = 2  # the smoke vlm's patch grid: 2 x 2 patches lead the prompt
+
+
+def _mrope_positions(b, s, grid=VISION_GRID):
+    """Distinct M-RoPE streams: patch i of the grid at (0, i // grid, i % grid),
+    the text after the patches at grid + j on all three streams."""
+    n = grid * grid
+    pos = np.empty((s, 3), np.int32)
+    pos[:n] = np.stack([np.zeros(n), np.arange(n) // grid, np.arange(n) % grid], -1)
+    pos[n:] = (grid + np.arange(s - n))[:, None]
+    return np.broadcast_to(pos, (b, s, 3)).copy()
+
+
+def _inputs(cfg, tokens, rng):
+    """A model batch as numpy arrays: random frames for the encoder-decoder,
+    patch embeddings and distinct M-RoPE streams for the vlm."""
+    b, s = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    if cfg.frontend == "vision_stub":
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, VISION_GRID ** 2, cfg.d_model)).astype(np.float32)
+    if cfg.rope_mode == "mrope":
+        batch["positions"] = _mrope_positions(b, s)
+    return batch
+
+
+def _decode_positions(cfg, b, pos):
+    """(B, 1) positions of a decode step, or (B, 1, 3) under M-RoPE; after the
+    patches the streams are equal, so the step's position is grid + its index."""
+    if cfg.rope_mode == "mrope":
+        return np.full((b, 1, 3), pos - VISION_GRID ** 2 + VISION_GRID, np.int32)
+    return np.full((b, 1), pos, np.int32)
+
+
+def _jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -227,22 +277,25 @@ def test_new_arch_config_copy_matches_jax(arch, smoke):
     assert tcfg.param_count() == jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("xlstm-125m", "A.10.6"), ("whisper-base", "A.10.7"), ("qwen2-vl-72b", "A.10.8"),
-    ("arctic-480b", "A.10.8")])
-def test_init_refuses_what_the_port_does_not_run(arch, item):
-    """Each arch the model code does not run yet is refused, naming its ROADMAP item."""
-    jcfg = jax_get_config(arch).smoke()
-    cfg = ModelConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
-    with pytest.raises(NotImplementedError, match=item):
-        torch_model.init(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-base", "qwen2-vl-72b", "arctic-480b"])
+def test_init_and_generate_serve_the_last_four_archs(arch):
+    """The four archs the model code took last initialize and serve on the CPU."""
+    cfg = get_config(arch).smoke()
+    srv = ModelServer(cfg, batch_size=2, cache_len=32, seed=1, device="cpu")
+    leaves = jax.tree_util.tree_leaves(srv.params)
+    assert leaves and all(t.device.type == "cpu" and torch.isfinite(t).all() for t in leaves)
+    outs = srv.generate([Request(0, torch.arange(1, 9, dtype=torch.int32), 4),
+                         Request(1, torch.arange(3, 8, dtype=torch.int32), 3)])
+    assert [len(outs[0]), len(outs[1])] == [4, 3]
+    assert all(0 <= t < cfg.vocab_size for toks in outs.values() for t in toks)
 
 
 def test_new_arch_forward_matches_jax(arch_pair):
     jcfg, tcfg, jparams, tparams = arch_pair
-    tokens = np.random.default_rng(1).integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
-    jlogits, jaux = jax_model.forward(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
-    tlogits, taux = torch_model.forward(tparams, tcfg, {"tokens": torch.from_numpy(tokens)})
+    rng = np.random.default_rng(1)
+    batch = _inputs(tcfg, rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32), rng)
+    jlogits, jaux = jax_model.forward(jparams, jcfg, _jax_batch(batch))
+    tlogits, taux = torch_model.forward(tparams, tcfg, _torch_batch(batch))
     _close(tlogits, jlogits)
     _close(taux, jaux)
 
@@ -254,38 +307,47 @@ def _layer_caches(jcache, cfg):
     return jcache
 
 
+def _same_cache(tcache, jcache):
+    """A layer's cache, key by key: ``pos`` exactly, tensors at the tolerance;
+    an encoder-decoder layer's self cache is a nested dict."""
+    assert set(tcache) == set(jcache)
+    for name, t in tcache.items():
+        if isinstance(t, dict):
+            _same_cache(t, jcache[name])
+        elif name == "pos":
+            assert t == int(jcache[name])
+        else:
+            assert t.dtype == torch.float32
+            _close(t, jcache[name])
+
+
 def test_new_arch_prefill_and_decode_match_jax(arch_pair):
     """Prefill logits and caches, then eight decode steps' logits and the caches.
     A 12-token prompt is longer than recurrentgemma's window of 8, so its
-    attention caches hold the rolled ring and decode writes around it."""
+    attention caches hold the rolled ring and decode writes around it; it is
+    longer than the conv of the recurrent blocks; whisper's frames are random,
+    and qwen2-vl's prompt starts with patch embeddings at distinct positions."""
     jcfg, tcfg, jparams, tparams = arch_pair
     rng = np.random.default_rng(2)
     b, s, cache_len = 2, 12, 32
-    tokens = rng.integers(0, tcfg.vocab_size, (b, s)).astype(np.int32)
+    batch = _inputs(tcfg, rng.integers(0, tcfg.vocab_size, (b, s)).astype(np.int32), rng)
     jdecode = jax.jit(lambda p, t, pos, c: jax_model.decode_step(p, jcfg, t, pos, c))
-    jlogits, jcache = jax_model.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)}, cache_len)
-    tlogits, tcache = torch_model.prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)},
-                                          cache_len)
+    jlogits, jcache = jax_model.prefill(jparams, jcfg, _jax_batch(batch), cache_len)
+    tlogits, tcache = torch_model.prefill(tparams, tcfg, _torch_batch(batch), cache_len)
     _close(tlogits, jlogits)
 
     def same_cache():
         jlayers = _layer_caches(jcache, jcfg)
         assert len(tcache) == len(jlayers) == tcfg.num_layers
         for tl, jl in zip(tcache, jlayers):
-            assert set(tl) == set(jl)
-            for name, t in tl.items():
-                if name == "pos":
-                    assert t == int(jl[name])
-                else:
-                    assert t.dtype == torch.float32
-                    _close(t, jl[name])
+            _same_cache(tl, jl)
 
     same_cache()
     if tcfg.attn_window:
         assert tcache[2]["k"].shape[1] == tcfg.attn_window < s  # the ring roll was taken
     for step in range(8):
         token = rng.integers(0, tcfg.vocab_size, (b, 1)).astype(np.int32)
-        pos = np.full((b, 1), s + step, np.int32)
+        pos = _decode_positions(tcfg, b, s + step)
         jlogits, jcache = jdecode(jparams, jnp.asarray(token), jnp.asarray(pos), jcache)
         tlogits, tcache = torch_model.decode_step(tparams, tcfg, torch.from_numpy(token),
                                                   torch.from_numpy(pos), tcache)
@@ -307,6 +369,75 @@ def test_new_arch_generate_matches_jax(arch_pair, lens, max_new):
     tout = tsrv.generate([Request(i, torch.from_numpy(p), m)
                           for i, (p, m) in enumerate(zip(prompts, max_new))])
     assert tout == jout
+
+
+def _last_pair(arch, seed=0):
+    jcfg, tcfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
+    jparams = jax_model.init(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, tcfg, jparams, params_from_jax(_numpy_tree(jparams), tcfg, device="cpu")
+
+
+def test_whisper_prefill_leaves_the_self_caches_empty():
+    """The reference's encoder-decoder prefill fills only the cross attention's
+    k, v: every self cache comes back at ``pos`` 0 and zero, so the first
+    decode step attends to itself alone (ROADMAP C.6). The port does the same,
+    and its logits of that step are the reference's."""
+    jcfg, tcfg, jparams, tparams = _last_pair("whisper-base", seed=4)
+    rng = np.random.default_rng(4)
+    b, s = 2, 6
+    batch = _inputs(tcfg, rng.integers(0, tcfg.vocab_size, (b, s)).astype(np.int32), rng)
+    _, jcache = jax_model.prefill(jparams, jcfg, _jax_batch(batch), 16)
+    _, tcache = torch_model.prefill(tparams, tcfg, _torch_batch(batch), 16)
+    for layer in tcache:
+        assert layer["self"]["pos"] == 0
+        assert not layer["self"]["k"].any() and not layer["self"]["v"].any()
+        assert layer["cross_k"].shape == (b, tcfg.encoder_seq, tcfg.num_kv_heads, tcfg.hd())
+    token, pos = np.full((b, 1), 3, np.int32), np.full((b, 1), s, np.int32)
+    jlogits, jcache = jax_model.decode_step(jparams, jcfg, jnp.asarray(token), jnp.asarray(pos),
+                                            jcache)
+    tlogits, tcache = torch_model.decode_step(tparams, tcfg, torch.from_numpy(token),
+                                              torch.from_numpy(pos), tcache)
+    _close(tlogits, jlogits)
+    assert all(layer["self"]["pos"] == 1 for layer in tcache)
+
+
+def test_qwen2_vl_streams_and_patches_reach_the_logits():
+    """qwen2-vl with patch embeddings and distinct M-RoPE streams matches the
+    reference (above); here each of the two moves the logits, so the sections
+    and the overwrite are exercised, not passed over."""
+    jcfg, tcfg, jparams, tparams = _last_pair("qwen2-vl-72b", seed=5)
+    rng = np.random.default_rng(5)
+    batch = _inputs(tcfg, rng.integers(0, tcfg.vocab_size, (2, 10)).astype(np.int32), rng)
+    equal = dict(batch, positions=np.broadcast_to(np.arange(10, dtype=np.int32)[None, :, None],
+                                                  (2, 10, 3)).copy())
+    text = {k: v for k, v in batch.items() if k != "vision_embeds"}
+    out = {}
+    for name, bt in (("vlm", batch), ("equal_streams", equal), ("text_only", text)):
+        jlogits, _ = jax_model.forward(jparams, jcfg, _jax_batch(bt))
+        out[name], _ = torch_model.forward(tparams, tcfg, _torch_batch(bt))
+        _close(out[name], jlogits)
+    for name in ("equal_streams", "text_only"):
+        assert float((out[name] - out["vlm"]).abs().max()) > 1e-3
+
+
+def test_arctic_dense_residual_under_ep_matches_jax():
+    """arctic's MoE layers carry the dense residual MLP beside the experts and
+    prefill on the expert-parallel path (here un-meshed, as the reference's
+    fallback); the block's output is the reference's, and without the residual
+    it is not."""
+    jcfg, tcfg, jparams, tparams = _last_pair("arctic-480b", seed=6)
+    assert tcfg.moe_impl == "ep" and tcfg.moe_dense_residual
+    layer = tparams["stack"]["layers"][0]["moe"]
+    assert layer["dense"]["w_in"]["w"].shape == (tcfg.d_model, tcfg.moe_dense_d_ff)
+    x = np.random.default_rng(6).standard_normal((2, 8, tcfg.d_model)).astype(np.float32)
+    jlayer = jax.tree_util.tree_map(lambda a: a[0], jparams["stack"]["layers"]["moe"])
+    jy, jaux = jax_moe.moe_apply_ep(jlayer, jcfg, jnp.asarray(x))
+    ty, taux = torch_moe.moe_apply_ep(layer, tcfg, torch.from_numpy(x))
+    _close(ty, jy)
+    _close(taux, jaux)
+    bare, _ = torch_moe.moe_apply_ep({k: v for k, v in layer.items() if k != "dense"}, tcfg,
+                                     torch.from_numpy(x))
+    assert float((bare - ty).abs().max()) > 1e-3
 
 
 def test_moe_serving_drops_pairs_as_jax(monkeypatch):
@@ -403,4 +534,54 @@ def test_params_from_jax_refuses_other_trees():
                                               if k != "1"}}},
                 {k: v for k, v in tree.items() if k != "final_norm"}):
         with pytest.raises(ValueError, match="expected a decoder parameter tree"):
+            params_from_jax(bad, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["whisper-base", "xlstm-125m", "arctic-480b"],
+                         ids=["encoder_decoder", "xlstm_blocks", "moe_dense_residual"])
+def test_params_from_jax_round_trip_last_trees(arch, param_dtype):
+    """The encoder-decoder tree (kept as the reference lays it out), the
+    unrolled mLSTM and sLSTM blocks (the sLSTM's per-head recurrence r and
+    its fp32 bias b), and the scanned MoE's dense residual, each equal to the
+    JAX leaf bit for bit, fp32 and bf16."""
+    jcfg = dataclasses.replace(jax_get_config(arch).smoke(), param_dtype=param_dtype)
+    tcfg = dataclasses.replace(get_config(arch).smoke(), param_dtype=param_dtype)
+    tree = _numpy_tree(jax_model.init(jax.random.PRNGKey(3), jcfg))
+    params = params_from_jax(tree, tcfg, device="cpu")
+    assert set(params) == set(tree)
+    if tcfg.is_encoder_decoder:
+        jax.tree_util.tree_map(_same_bits, params, tree)
+        assert params["pos_embed"]["w"].shape == (4096, tcfg.d_model)
+        assert sorted(params["enc"]) == ["0", "1"] and sorted(params["dec"]) == ["0", "1"]
+        assert "bias" in params["dec"]["0"]["norm_x"]  # LayerNorm
+        return
+    layers = params["stack"]["layers"]
+    assert len(layers) == tcfg.num_layers
+    if "blocks" in tree["stack"]:
+        for i, lp in enumerate(layers):
+            jax.tree_util.tree_map(_same_bits, lp, tree["stack"]["blocks"][str(i)])
+        slstm = layers[tcfg.pattern().index("slstm")]["slstm"]
+        dh = tcfg.d_model // tcfg.num_heads
+        assert slstm["r"]["w"].shape == (tcfg.num_heads, dh, 4 * dh)
+        assert slstm["b"].dtype == torch.float32 and slstm["b"].shape == (4 * tcfg.d_model,)
+    else:
+        for i, lp in enumerate(layers):
+            jax.tree_util.tree_map(lambda t, a, i=i: _same_bits(t, a[i]), lp,
+                                   tree["stack"]["layers"])
+        assert layers[0]["moe"]["dense"]["w_in"]["w"].shape == (tcfg.d_model,
+                                                               tcfg.moe_dense_d_ff)
+
+
+def test_params_from_jax_refuses_malformed_encdec_trees():
+    cfg = get_config("whisper-base").smoke()
+    tree = _numpy_tree(jax_model.init(jax.random.PRNGKey(0),
+                                      jax_get_config("whisper-base").smoke()))
+    dec0 = tree["dec"]["0"]
+    for bad in ({**tree, "stack": {}},
+                {k: v for k, v in tree.items() if k != "pos_embed"},
+                {**tree, "enc": {k: v for k, v in tree["enc"].items() if k != "1"}},
+                {**tree, "dec": {**tree["dec"], "0": {k: v for k, v in dec0.items()
+                                                      if k != "cross_attn"}}}):
+        with pytest.raises(ValueError, match="expected an encoder-decoder parameter tree"):
             params_from_jax(bad, cfg, device="cpu")
