@@ -19,7 +19,16 @@ recurrentgemma-9b (a prompt past its attention window), qwen2-7b,
 llama3.2-3b, whisper-base, xlstm-125m, and qwen2-vl-72b and arctic-480b at
 the depth one card holds; ``[serve-fleet]`` runs the reference's
 examples/serve_fleet.py loop (GT-DRL's split to a dense, an MoE and a
-hybrid smoke server x 2 DCs). Then
+hybrid smoke server x 2 DCs). It trains: ``[kernel-bwd]`` holds the flash
+backward kernel (``csrc/flash_attention_bwd.cu``) against the plain backward
+of ``kernels/flash_vjp.py`` case by case and at llama3.2-1b's training
+shape; ``[train-hold]`` one fp32 train step of llama3.2-1b at full width
+through the kernels against ``impl="ref"``, then bf16 by distance from fp32;
+``[train]`` ``train_loop`` at full width (10 steps: step ms, tokens/s, peak
+memory, launches held exactly, one step profiled); ``[train-arch]`` every
+arch at smoke width against the same steps on the host CPU (a second process,
+``--cpu-train-reference PATH``); ``[train-resume]`` a crash at step 17 and a
+resume bit-equal to an uninterrupted run. Then
 it drives the scheduler path (``repro_torch.core``) on the paper's fleets
 built on the card:
 
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -71,7 +81,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import faults as fault_mod  # noqa: E402
 from repro_torch import obs, scenarios  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import ExperimentSpec, compare_techniques, run, sweep  # noqa: E402
 from repro_torch.core import experiment, game, gt_drl, schedulers  # noqa: E402
 from repro_torch.core.draws import generator  # noqa: E402
@@ -81,15 +92,23 @@ from repro_torch.dcsim import latency  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import flash_vjp  # noqa: E402
 from repro_torch.configs.base import ATTN  # noqa: E402
+from repro_torch.data.tokens import make_batch  # noqa: E402
 from repro_torch.launch.serve import Fleet, ModelServer, Request  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.train.step import decode_step, prefill_step  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.train import step as train_step_mod  # noqa: E402
+from repro_torch.train.step import (decode_step, init_train_state, loss_and_grads,  # noqa: E402
+                                    make_train_step, prefill_step, train_step)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, bf16 tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, bf16 tensor cores,
+# fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 # clock cycles of the spin kernel per second of host time to cover (above
 # the H100's 1.98 GHz boost clock, so the spin lasts at least that long)
 SPIN_CYCLES_PER_S = 2e9
@@ -217,6 +236,56 @@ FLEET_ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-9b"]
 # fp32: summation order only; bf16: one rounding of O(1) outputs (2^-8) plus order
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
+# [kernel-bwd]: the backward kernel against flash_vjp's plain backward, both
+# through autograd from the same inputs and output cotangent. The cases of
+# tests/test_kernels.py::test_flash_vjp_gradients (softcap 0 and 30), window
+# + GQA, q_offset with Sq < Skv, non-causal Sq != Skv, D = 16 (fp32 only) and
+# D = 256, then llama3.2-1b's training shape (TRAIN_ATTN_CASE).
+# (b, sq, skv, h, kvh, d, causal, window, softcap, q_offset)
+BWD_CASES = [
+    (1, 256, 256, 4, 2, 32, True, 0, 0.0, 0),
+    (1, 256, 256, 4, 2, 32, True, 0, 30.0, 0),
+    (1, 384, 384, 4, 2, 128, True, 64, 0.0, 0),
+    (2, 64, 192, 4, 2, 64, True, 0, 0.0, 128),
+    (1, 96, 320, 4, 1, 32, True, 64, 25.0, 224),
+    (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),
+    (3, 4, 150, 8, 2, 64, False, 0, 0.0, 0),
+    (2, 100, 100, 4, 2, 16, True, 0, 0.0, 0),
+    (1, 200, 200, 8, 1, 256, True, 0, 0.0, 0),
+    (1, 130, 70, 4, 4, 256, False, 0, 0.0, 0),
+]
+TRAIN_ATTN_CASE = (8, 256, 256, 32, 8, 64, True, 0, 0.0, 0)
+# dq, dk, dv against the plain backward. fp32: max abs, summation order over
+# up to 384 keys of O(10) gradients (2.1e-5 at most on an H100 80GB HBM3);
+# bf16: relative norm, the gradients' own bf16 rounding (2^-8 an element,
+# ~1.6e-3 in norm) and the forward kernel's bf16 P
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# training: llama3.2-1b at full width, the reference launcher's batch 8 x 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 10
+# [train-hold], one fp32 step at full width, kernel path against impl="ref"
+# from the same state (opt step 100: the schedule's peak lr) and batch: loss
+# at rtol 1e-5 and the grad norm at 1e-4 (16 layers of ~1e-6 summation-order
+# differences); each leaf's gradient at a relative norm of 1e-3; the
+# parameters' update (new - old) at a relative norm of 1e-2, since Adam
+# normalizes each element, so an element whose gradient is within the
+# paths' noise of 0 can move by a whole lr either way. bf16: the kernel
+# path's loss and gradients no further from the fp32 ones than twice the
+# plain bf16 path's (the loss with a floor of 1e-3 of its value: one scalar
+# can land on the fp32 one by chance)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 1e-4, 1e-3, 1e-2
+TRAIN_BF16_FACTOR, TRAIN_BF16_LOSS_FLOOR = 2.0, 1e-3
+# [train-arch]: each arch at smoke width (fp32, head dim 16), eight steps on
+# one batch as tests/test_arch_smoke.py takes them, card against the CPU
+# process's run from the same parameters: the first loss at rtol 1e-5
+# (summation order), the later ones at 1e-3 (Adam's normalized steps carry
+# the last bits forward)
+ARCH_STEPS, ARCH_LR = 8, 5e-3
+ARCH_FIRST_RTOL, ARCH_LOSS_RTOL = 1e-5, 1e-3
+# [train-resume]: tests/test_fault_tolerance.py's crash at step 17 of 30
+RESUME_KW = dict(arch="llama3.2-1b", smoke=True, batch=2, seq=32, lr=1e-3, seed=3,
+                 save_every=10, log_every=1000)
+RESUME_STEPS, RESUME_FAIL_AT = 30, 17
+
 # llama3.2-1b serving: batch 8, 256-token prompts, 32 new tokens, cache 1024
 ARCH, BATCH, PROMPT, MAX_NEW, CACHE = "llama3.2-1b", 8, 256, 32, 1024
 # first-step logits, kernel path vs impl="ref" on the card. fp32: the kernels
@@ -342,9 +411,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush: torch.Tensor | None = N
     return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
-def bound(nbytes: int, flops: int):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOPS):
+    """(ms, "bytes" | "operations"): the least time the card could take, its
+    operations at ``peak_flops`` (bf16's unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -463,7 +533,7 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- 2. build ---------------------------------------------------------
-    sources = [flash_mod.KERNEL.source, dec_mod.KERNEL.source]
+    sources = [flash_mod.KERNEL.source, flash_mod.BWD_KERNEL.source, dec_mod.KERNEL.source]
     t0 = time.perf_counter()
     seconds = _build.build(sources)
     phase("build", wall_s=f"{time.perf_counter() - t0:.1f}",
@@ -612,6 +682,7 @@ def main() -> int:
     kernels_at_d256(randn, records, flush)
     del flush
     kernels_at_new_shapes(randn, records)
+    kernel_bwd_phase(randn, records)
 
     # -- 4. serving: the main path ----------------------------------------
     t0 = time.perf_counter()
@@ -679,13 +750,17 @@ def main() -> int:
     serve_arch_phase(dev, records)
     serve_fleet_phase(dev, records)
 
+    # -- 5c. training: llama3.2-1b at full width, every arch at smoke width --
+    train_phases(dev, records)
+
     # -- 6. the scheduler path: fleet env, game, simulator ----------------
     sched_phases(dev)
 
     phase("done", seconds=f"{time.perf_counter() - T_START:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "launches_by_path", "d256", "rows")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1864,7 +1939,350 @@ def sweep_phase(dev: torch.device, card: dict, ref: dict) -> None:
     shutil.rmtree(journals, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernel, llama3.2-1b's train step at full width, every
+# arch at smoke width, and the trainer's crash and resume
+# ---------------------------------------------------------------------------
+
+def _positions_mask(sq: int, skv: int, causal: bool, window: int, q_offset: int, device):
+    """(Sq, Skv) bool: the keys each query row sees, as the kernels mask them."""
+    qp = q_offset + torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= kp > qp - window
+    return ok
+
+
+def bwd_row(randn, case, dtype) -> dict:
+    """The backward kernel at one case: dq, dk, dv through autograd (the
+    forward kernel with lse, then the backward kernel) against flash_vjp's
+    plain forward and backward from the same inputs and cotangent; then the
+    backward kernel alone timed against the plain backward, the library's
+    backward (scaled_dot_product_attention with enable_gqa, through
+    autograd; none under a softcap, which it does not take) and the bound."""
+    F = torch.nn.functional
+    b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    q, k, v = (randn(*s, dtype=dtype).requires_grad_()
+               for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    g = randn(b, sq, h, d, dtype=dtype)
+    out = flash_mod.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    plain_out = flash_vjp.flash_attention_torch(q, k, v, **kw)
+    want = torch.autograd.grad(plain_out, (q, k, v), g)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        err = max(max_err(a, w) for a, w in zip(got, want))
+    else:
+        err = max(rel_norm(a, w) for a, w in zip(got, want))
+    if not err < BWD_TOL[dtype]:
+        fail(f"flash_attention_bwd {case} {dtype}: dq/dk/dv {err} >= {BWD_TOL[dtype]}")
+    q, k, v = (t.detach() for t in (q, k, v))
+    scale, chunk = d ** -0.5, min(512, skv)
+    o, lse = flash_mod.flash_attention_fwd(q, k, v, sm_scale=None, **kw)
+    po, plse = flash_vjp.flash_fwd(q, k, v, scale=scale, chunk=chunk, **kw)
+    kernel = lambda: flash_mod.flash_attention_bwd(q, k, v, o, lse, g, sm_scale=None, **kw)
+    plain = lambda: flash_vjp.flash_bwd(q, k, v, po, plse, g, scale=scale, chunk=chunk, **kw)
+    library_ms = None
+    if softcap == 0.0:
+        lq, lk, lv = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+        mask = _positions_mask(sq, skv, causal, window, q_offset, q.device)
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, enable_gqa=True)
+        lg = g.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
+                                                         retain_graph=True), iters=10)
+    elt = q.element_size()
+    nbytes = elt * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+    flops = 10 * b * h * d * attn_pairs(sq, skv, causal, window, q_offset)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                               else PEAK_FP32_FLOPS)
+    return dict(shape=f"q{tuple(q.shape)} kv{tuple(k.shape)} {str(dtype)[6:]} causal={causal} "
+                f"window={window} softcap={softcap} q_offset={q_offset}",
+                grad_err=err, err_measure="max_abs" if dtype == torch.float32 else "rel_norm",
+                max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
+                out_max_abs_err=max_err(out.detach(), plain_out.detach()),
+                lse_max_abs_err=max_err(lse, plse),
+                ms=time_ms(kernel, iters=10), plain_ms=time_ms(plain, iters=5),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                bytes=nbytes, flops=flops)
+
+
+def kernel_bwd_phase(randn, records: dict) -> None:
+    """[kernel-bwd]: a row per case and dtype (D = 16 in fp32 only), then
+    llama3.2-1b's training shape in both dtypes; the bf16 training row is the
+    kernel's record."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in BWD_CASES + [TRAIN_ATTN_CASE]:
+            if case[5] in _build.FP32_HEAD_DIMS and dtype != torch.float32:
+                continue
+            row = bwd_row(randn, case, dtype)
+            rows.append(row)
+            phase("kernel-bwd", **row, tol=BWD_TOL[dtype])
+    main = rows[-1]
+    records["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_vjp.py:101",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        launches=0, launches_by_path={}, rows=rows[:-1])
+
+
+def global_rel(got, want) -> float:
+    """sqrt(sum |a - b|^2) / sqrt(sum |b|^2) over two lists of tensors."""
+    num = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(got, want))
+    den = sum(float((b.float() ** 2).sum()) for b in want)
+    return (num / den) ** 0.5
+
+
+def train_hold_phase(dev: torch.device) -> None:
+    """[train-hold]: one fp32 step of llama3.2-1b at full width (16 layers),
+    the kernel path against impl="ref" from the same state and batch: loss,
+    grad norm, every leaf's gradient and the parameters' update. Then bf16
+    (the fp32 weights rounded): each path's loss and gradients by their
+    distance from the fp32 reference path's."""
+    cfg = get_config(ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    opt = AdamWConfig(lr=1e-3)
+    state = init_train_state(cfg32, opt, seed=0, device=dev)
+    state = state._replace(opt=state.opt._replace(
+        step=torch.full((), 100, dtype=torch.int32, device=dev)))
+    batch = make_batch(cfg32, seed=1, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
+    runs = {impl: loss_and_grads(state.params, cfg32, batch, impl=impl)
+            for impl in ("auto", "ref")}
+    (lk, _, gk), (l32, _, g32) = runs["auto"], runs["ref"]
+    del runs
+    gk, g32 = tree_leaves(gk), tree_leaves(g32)
+    loss_rel = abs(float(lk) / float(l32) - 1)
+    gnorm = [float(global_norm(x)) for x in (gk, g32)]
+    gnorm_rel = abs(gnorm[0] / gnorm[1] - 1)
+    leaf_rel = [rel_norm(a, w) for a, w in zip(gk, g32)]
+    del gk
+    updates = {}
+    for impl in ("auto", "ref"):
+        new, _ = train_step(state, batch, cfg=cfg32, opt_cfg=opt, impl=impl)
+        updates[impl] = [a - w for a, w in zip(tree_leaves(new.params),
+                                               tree_leaves(state.params))]
+        del new
+    update_rel = global_rel(updates["auto"], updates["ref"])
+    del updates
+    torch.cuda.synchronize()
+    phase("train-hold", arch=ARCH, dtype="float32", layers=cfg.num_layers,
+          batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", loss=f"{float(lk):.8g}",
+          loss_ref=f"{float(l32):.8g}", loss_rel=f"{loss_rel:.3g}",
+          grad_norm=f"{gnorm[0]:.8g}", grad_norm_rel=f"{gnorm_rel:.3g}",
+          worst_leaf_grad_rel=f"{max(leaf_rel):.3g}", leaves=len(leaf_rel),
+          update_rel=f"{update_rel:.3g}", lr_scale=1.0,
+          tol=f"loss {TRAIN_LOSS_RTOL}, grad norm {TRAIN_GNORM_RTOL}, leaf "
+          f"{TRAIN_LEAF_RTOL}, update {TRAIN_UPDATE_RTOL}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL
+            and max(leaf_rel) <= TRAIN_LEAF_RTOL and update_rel <= TRAIN_UPDATE_RTOL
+            and math.isfinite(float(lk))):
+        fail(f"train-hold fp32: loss {loss_rel}, grad norm {gnorm_rel}, worst leaf "
+             f"{max(leaf_rel)}, update {update_rel}")
+
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), state.params)
+    del state
+    dist = {}
+    for impl in ("auto", "ref"):
+        loss, _, grads = loss_and_grads(params16, cfg, batch, impl=impl)
+        dist[impl] = (abs(float(loss) - float(l32)), global_rel(tree_leaves(grads), g32))
+        del grads
+    (kl, kg), (rl, rg) = dist["auto"], dist["ref"]
+    loss_bound = max(TRAIN_BF16_FACTOR * rl, TRAIN_BF16_LOSS_FLOOR * abs(float(l32)))
+    phase("train-hold", arch=ARCH, dtype="bfloat16", loss_kernel_vs_fp32=f"{kl:.4g}",
+          loss_plain_vs_fp32=f"{rl:.4g}", grads_kernel_vs_fp32=f"{kg:.4g}",
+          grads_plain_vs_fp32=f"{rg:.4g}",
+          rule=f"kernel <= {TRAIN_BF16_FACTOR} x plain (loss floor "
+          f"{TRAIN_BF16_LOSS_FLOOR} of its value)")
+    if not (kl <= loss_bound and kg <= TRAIN_BF16_FACTOR * rg):
+        fail(f"train-hold bf16: loss {kl} (plain {rl}), grads {kg} (plain {rg})")
+
+
+def train_phase(dev: torch.device, records: dict) -> None:
+    """[train]: the trainer at full width, bf16, through both flash kernels,
+    launches held exactly (remat "full" runs each attention forward twice a
+    step); step ms (median of steps 2-10), tokens/s, peak memory; then one
+    step under the profiler, and its forward and backward by CUDA events."""
+    cfg = get_config(ARCH)
+    n_attn = attn_layers(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_mod.KERNEL.launches = flash_mod.BWD_KERNEL.launches = dec_mod.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = train_loop(arch=ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, device=dev, log_every=TRAIN_STEPS)
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_mod.KERNEL.launches,
+                "flash_attention_bwd": flash_mod.BWD_KERNEL.launches,
+                "decode_attention": dec_mod.KERNEL.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * TRAIN_STEPS, "decode_attention": 0}
+    if launches != want:
+        fail(f"train launches {launches}, expected {want}")
+    losses = res["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"train losses {losses}")
+    step_ms = float(np.median(res["step_s"][1:])) * 1e3
+    records["flash_attention"]["launches_by_path"][f"train {ARCH}"] = launches["flash_attention"]
+    records["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
+    records["flash_attention_bwd"]["launches_by_path"] = {
+        f"train {ARCH}": launches["flash_attention_bwd"]}
+    phase("train", arch=ARCH, layers=cfg.num_layers, dtype=cfg.dtype, remat=cfg.remat,
+          batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+          step_ms_median_2_10=f"{step_ms:.3f}", first_step_ms=f"{res['step_s'][0] * 1e3:.1f}",
+          tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f}",
+          peak_gib=f"{peak_gib:.2f}", wall_s=f"{wall_s:.1f}", launches=launches,
+          losses=[f"{x:.4f}" for x in losses])
+
+    opt = AdamWConfig(lr=1e-3)
+    state = res["state"]
+    del res
+    step = make_train_step(cfg, opt)
+    batch = make_batch(cfg, seed=1, step=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       device=dev)
+    profile_phase("train-profile", lambda: step(state, batch), what="one train step",
+                  arch=ARCH)
+    leaves = tree_leaves(state.params)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    marks[0].record()
+    with torch.enable_grad():
+        fresh = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = train_step_mod.loss_fn(tree_unflatten(state.params, fresh), cfg, batch)
+        marks[1].record()
+        torch.autograd.grad(loss, fresh)
+    marks[2].record()
+    torch.cuda.synchronize()
+    phase("train-profile", what="forward and backward by CUDA events (device time between "
+          "markers)", forward_ms=f"{marks[0].elapsed_time(marks[1]):.3f}",
+          backward_ms=f"{marks[1].elapsed_time(marks[2]):.3f}")
+
+
+def train_arch_losses(device) -> dict:
+    """Each arch at smoke width: ARCH_STEPS steps on one batch (seed 3, step
+    0, 2 x 32) from parameters drawn on the CPU (seed 0) and moved to
+    ``device``; its losses, and its kernel launches on a card."""
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).smoke()
+        opt = AdamWConfig(lr=ARCH_LR)
+        state = tree_map(lambda t: t.to(device),
+                         init_train_state(cfg, opt, seed=0, device="cpu"))
+        batch = make_batch(cfg, seed=3, step=0, batch=2, seq=32, device=device)
+        step = make_train_step(cfg, opt)
+        flash_mod.KERNEL.launches = flash_mod.BWD_KERNEL.launches = 0
+        losses = []
+        for _ in range(ARCH_STEPS):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        out[arch] = {"losses": losses, "launches": [flash_mod.KERNEL.launches,
+                                                    flash_mod.BWD_KERNEL.launches]}
+    return out
+
+
+def train_arch_phase(dev: torch.device, child, ref_path: Path) -> None:
+    """[train-arch]: every arch at smoke width through the kernels on the
+    card: launches held exactly, the loss falls, the losses against the CPU
+    process's."""
+    t0 = time.perf_counter()
+    card = train_arch_losses(dev)
+    card_s = time.perf_counter() - t0
+    if child.wait(timeout=600) != 0:
+        fail(f"the CPU training reference process exited {child.returncode}")
+    ref = json.loads(ref_path.read_text())
+    for arch in ARCHS:
+        cfg = get_config(arch).smoke()
+        calls = (cfg.num_encoder_layers + 2 * cfg.num_layers if cfg.is_encoder_decoder
+                 else attn_layers(cfg))
+        got, want = card[arch]["losses"], ref[arch]["losses"]
+        rel = [abs(a / w - 1) for a, w in zip(got, want)]
+        phase("train-arch", arch=arch, layers=cfg.num_layers, head_dim=cfg.hd(),
+              steps=ARCH_STEPS, launches=card[arch]["launches"],
+              first_loss=f"{got[0]:.6f}", last_loss=f"{got[-1]:.6f}",
+              first_rel_vs_cpu=f"{rel[0]:.3g}", max_rel_vs_cpu=f"{max(rel):.3g}",
+              tol=f"first {ARCH_FIRST_RTOL}, later {ARCH_LOSS_RTOL}")
+        if card[arch]["launches"] != [calls * ARCH_STEPS] * 2:
+            fail(f"train-arch {arch}: launches {card[arch]['launches']}, expected "
+                 f"{calls * ARCH_STEPS} of each")
+        if not (got[-1] < got[0] and rel[0] <= ARCH_FIRST_RTOL
+                and max(rel) <= ARCH_LOSS_RTOL):
+            fail(f"train-arch {arch}: card losses {got}, CPU {want}")
+    phase("train-arch", archs=len(ARCHS), card_s=f"{card_s:.1f}",
+          cpu_s=f"{ref['seconds']:.1f}")
+
+
+def train_resume_phase(dev: torch.device) -> None:
+    """[train-resume]: on the card at smoke width, a crash at step 17 of 30
+    and a resume from the step-10 checkpoint end on the loss, and the state,
+    of an uninterrupted 30 steps, bit for bit."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(RESUME_KW, steps=RESUME_STEPS, device=dev)
+    whole = train_loop(ckpt_dir=str(root / "whole"), **kw)
+    try:
+        train_loop(ckpt_dir=str(root / "crashed"), fail_at=RESUME_FAIL_AT, **kw)
+        fail("train-resume: the simulated failure did not stop the run")
+    except RuntimeError as err:
+        if "simulated failure" not in str(err):
+            raise
+    resumed = train_loop(ckpt_dir=str(root / "crashed"), **kw)
+    same_state = all(torch.equal(a, b) for a, b in zip(tree_leaves(resumed["state"]),
+                                                         tree_leaves(whole["state"])))
+    kept = CheckpointManager(str(root / "crashed")).steps()
+    phase("train-resume", arch=RESUME_KW["arch"], smoke=True, steps=RESUME_STEPS,
+          crash_at=RESUME_FAIL_AT, resumed_steps=len(resumed["losses"]),
+          final_loss=f"{resumed['losses'][-1]:.8g}",
+          uninterrupted_final_loss=f"{whole['losses'][-1]:.8g}",
+          bit_equal_loss=resumed["losses"][-1] == whole["losses"][-1],
+          bit_equal_state=same_state, checkpoints_kept=kept)
+    if not (resumed["losses"] == whole["losses"][10:] and same_state and kept == [10, 20, 30]):
+        fail(f"train-resume: resumed {resumed['losses']} against {whole['losses'][10:]}, "
+             f"state equal {same_state}, kept {kept}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def train_phases(dev: torch.device, records: dict) -> None:
+    """The training path on the card, with the CPU process that [train-arch]
+    holds the card against started first, beside the card's work."""
+    ref_path = ROOT / "build" / "chip_smoke_cpu_train_reference.json"
+    ref_path.parent.mkdir(exist_ok=True)
+    ref_path.unlink(missing_ok=True)
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              "--cpu-train-reference", str(ref_path)],
+                             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        train_hold_phase(dev)
+        torch.cuda.empty_cache()
+        train_phase(dev, records)
+        torch.cuda.empty_cache()
+        train_arch_phase(dev, child, ref_path)
+        train_resume_phase(dev)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+
+
+def cpu_train_reference(path: Path) -> int:
+    """[train-arch]'s runs on the host CPU, written to ``path`` as JSON."""
+    torch.set_num_threads(2)
+    out = train_arch_losses(torch.device("cpu"))
+    out["seconds"] = time.perf_counter() - T_START
+    path.write_text(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-reference"]:
         sys.exit(cpu_reference(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--cpu-train-reference"]:
+        sys.exit(cpu_train_reference(Path(sys.argv[2])))
     sys.exit(main())

@@ -14,9 +14,12 @@ layout:
     ``steps`` (crash-consistent restore);
   * leaves are saved from the host, so a checkpoint written from the card
     restores onto the CPU or another card: restore puts each leaf on the
-    device and dtype of its template.
+    device and dtype of its template (a bfloat16 leaf is saved as its bits,
+    int16, since numpy has no bfloat16).
 
-Every step is kept.
+``save`` keeps every step (the sweep journal, ``faults/resume.py``, needs
+them all); the trainer calls ``prune`` after each save, which keeps the last
+``KEEP`` complete steps for rollback, the reference's default retention.
 """
 from __future__ import annotations
 
@@ -33,17 +36,24 @@ import torch
 from ..tree import tree_leaves, tree_unflatten
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
+KEEP = 3  # complete steps ``prune`` keeps
 
 
 def _to_host(x: Any) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
 
 
 def _like(template: Any, arr: np.ndarray) -> Any:
     """``arr`` on the device and dtype of a tensor or array ``template``;
     any other template leaf takes the array as saved."""
     if torch.is_tensor(template):
-        return torch.from_numpy(arr).to(device=template.device, dtype=template.dtype)
+        t = torch.from_numpy(arr)
+        if template.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        return t.to(device=template.device, dtype=template.dtype)
     if isinstance(template, np.ndarray):
         return arr.astype(template.dtype, copy=False)
     return arr
@@ -95,6 +105,15 @@ class CheckpointManager:
                 out.append(int(m.group(1)))
         return sorted(out)
 
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def prune(self) -> None:
+        """Delete all but the last ``KEEP`` complete steps."""
+        for step in self.steps()[:-KEEP]:
+            shutil.rmtree(self.step_dir(step), ignore_errors=True)
+
     def manifest(self, step: int) -> dict:
         with open(os.path.join(self.step_dir(step), "MANIFEST.json")) as f:
             return json.load(f)
@@ -116,3 +135,12 @@ class CheckpointManager:
                 leaves = [_like(t, data[f"arr_{i}"]) for i, t in enumerate(want)]
             out[name] = tree_unflatten(template, leaves)
         return out, manifest.get("extra", {})
+
+    def restore_latest(self, templates: Dict[str, Any],
+                       verify: bool = True) -> Optional[Tuple[int, Dict[str, Any], dict]]:
+        """(step, trees, extra) of the latest complete step, or None."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        state, extra = self.restore(step, templates, verify)
+        return step, state, extra

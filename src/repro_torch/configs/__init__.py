@@ -22,6 +22,7 @@ _ARCH_MODULES = {
     "qwen2-vl-72b": "qwen2_vl_72b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
+ARCHS = tuple(_ARCH_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -14,7 +14,8 @@ the reference's layout: ``embed``, ``pos_embed``, ``enc/{i}``, ``enc_norm``,
 be held on the same env, including one the JAX package's scenario transforms
 made. ``agents_from_jax`` and ``tree_from_jax`` carry the learning solvers'
 state (PPO agents with their AdamW states, DDPG's networks), so that both
-packages can start from the same agents.
+packages can start from the same agents. ``train_state_from_jax`` carries a
+training state (parameters, step and moments) across.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from .core.ppo import AgentState
 from .dcsim.env import EnvParams
 from .models.model import resolve_device
-from .tree import tree_map
+from .tree import tree_leaves, tree_map
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -129,3 +130,45 @@ def agents_from_jax(tree, device="cuda") -> AgentState:
         raise ValueError(f"expected an AgentState of {AgentState._fields}, got {len(tree)} fields")
     actor, critic, aopt, copt = (tree_from_jax(x, device) for x in tree)
     return AgentState(actor, critic, OptState(*aopt), OptState(*copt))
+
+
+def _is_qtensor(x) -> bool:
+    # the reference's ``_QTensor`` (a NamedTuple of q, scale), known by its fields
+    return getattr(x, "_fields", None) == ("q", "scale")
+
+
+def train_state_from_jax(tree, cfg, device="cuda"):
+    """The port's ``TrainState``, on ``device``, from a numpy copy of a JAX
+    ``repro.train.step.TrainState`` (``jax.tree_util.tree_map(np.asarray,
+    state)``): parameters through :func:`params_from_jax`, the int32 ``step``,
+    and the moments ``mu`` and ``nu`` laid out as the parameters. float32 and
+    bfloat16 moments carry over as they are; int8 ones (the reference's
+    ``_QTensor``) are dequantized, laid out, and quantized again leaf by leaf
+    (a scanned stack's moment is one quantized array in the reference and a
+    moment a layer here), which gives the same codes where a leaf's blocks
+    are the reference's."""
+    from .optim.adamw import OptState, _QTensor, _dequantize, _quantize
+    from .train.step import TrainState
+
+    params_np, (step, mu, nu) = tree
+    device = resolve_device(device)
+    params = params_from_jax(params_np, cfg, device)
+
+    def dequantized(m, like):
+        """``m`` with every _QTensor node replaced by its float32 values."""
+        if _is_qtensor(m):
+            q, s = (torch.from_numpy(np.asarray(a)) for a in m)
+            return _dequantize(q, s, np.shape(like)).numpy()
+        if isinstance(m, dict):
+            return {k: dequantized(m[k], like[k]) for k in m}
+        if isinstance(m, (list, tuple)):
+            return type(m)(dequantized(a, b) for a, b in zip(m, like))
+        return m
+
+    def moments(m):
+        quantized = any(_is_qtensor(x) for x in tree_leaves(m, _is_qtensor))
+        out = params_from_jax(dequantized(m, params_np), cfg, device)
+        return tree_map(lambda x: _QTensor(*_quantize(x)), out) if quantized else out
+
+    return TrainState(params, OptState(_to_torch(np.asarray(step), device), moments(mu),
+                                       moments(nu)))

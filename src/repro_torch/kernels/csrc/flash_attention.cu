@@ -10,7 +10,10 @@
 // Layout: q (B, Sq, H, D), k and v (B, Skv, KVH, D), o (B, Sq, H, D), all
 // contiguous and 16-byte aligned; query head h reads kv head h / (H / KVH),
 // so repeated KV is never stored. fp32 or bf16 in, the same dtype out;
-// scores, statistics and the accumulator are fp32.
+// scores, statistics and the accumulator are fp32. With a non-null `lse`
+// (fp32, (B, H, Sq)) each row's log-sum-exp of its scaled, capped scores,
+// natural log, is written too: the training forward saves it for
+// csrc/flash_attention_bwd.cu; serving passes null.
 //
 // What bounds it on the H100: at llama3.2-1b's serving prefill (q (8,256,32,64),
 // bf16, causal) the bytes, 21 MB or 6.3 us at 3.35 TB/s, against 2.2 GFLOP or
@@ -51,8 +54,12 @@
 //   shared memory, under the 232,448 a block may have.
 //
 // Both keep the reference's finite NEG_INF, its tile-skip rule (with this
-// kernel's q tile), the "fully masked first tile gets p = 1 and is wiped by
-// alpha = 0" behaviour, and l == 0 -> zeros.
+// kernel's q tile) and the "fully masked first tile gets p = 1 and is wiped by
+// alpha = 0" behaviour. A row that no key is visible to (its running max is
+// still NEG_INF at the end) outputs zeros, as the Pallas kernel gives a row
+// with no tile at all, and its lse is NEG_INF; the backward kernel gives it
+// zero gradients. The reference's jnp paths average V there instead
+// (ROADMAP C); no causal row of a train or serving step is such a row.
 
 #include "common.cuh"
 
@@ -72,8 +79,8 @@ constexpr size_t smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Skv, int H, int KVH, int causal, int window,
-    int q_offset, float sm_scale, float softcap) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KVH, int causal,
+    int window, int q_offset, float sm_scale, float softcap) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
@@ -232,26 +239,30 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int r = 0; r < 4; ++r) {
     const int row = ty * 4 + r;
     if (q0 + row >= Sq) continue;
-    float l = l_s[row];
-    l = (l == 0.f) ? 1.f : l;  // a row with no tile at all outputs zeros
+    // a row no key was visible to outputs zeros (with no tile at all, l == 0)
+    const bool seen = m_s[row] != kNegInf;
+    const float l = l_s[row];
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(q0 + row) * q_row + tx + 16 * c] = from_f<T>(acc[r][c] / l);
+      ob[(q0 + row) * q_row + tx + 16 * c] = from_f<T>(seen ? acc[r][c] / l : 0.f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + row] =
+          seen ? m_s[row] + logf(l) : kNegInf;
   }
 }
 
 template <int D>
-cudaError_t launch_fp32(const float* q, const float* k, const float* v, float* o, int B,
-                        int Sq, int Skv, int H, int KVH, int causal, int window, int q_offset,
-                        float sm_scale, float softcap, cudaStream_t stream) {
+cudaError_t launch_fp32(const float* q, const float* k, const float* v, float* o, float* lse,
+                        int B, int Sq, int Skv, int H, int KVH, int causal, int window,
+                        int q_offset, float sm_scale, float softcap, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_fwd_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>(q, k, v, o, Sq, Skv, H, KVH, causal, window, q_offset,
-                                     sm_scale, softcap);
+  kernel<<<grid, NT, smem, stream>>>(q, k, v, o, lse, Sq, Skv, H, KVH, causal, window,
+                                     q_offset, sm_scale, softcap);
   return cudaGetLastError();
 }
 
@@ -263,6 +274,7 @@ constexpr int MMA_WARPS = 4;  // warps per block; each owns 16 query rows
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x; -inf and very negative x give 0
 __device__ __forceinline__ float ex2(float x) {
@@ -288,8 +300,8 @@ template <int NW, int D>
 __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
     flash_fwd_bf16_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int Sq, int Skv, int H, int KVH, int causal, int window,
-    int q_offset, float sm_scale, float softcap) {
+    bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H, int KVH, int causal,
+    int window, int q_offset, float sm_scale, float softcap) {
   static_assert(D % 16 == 0 && BK % 16 == 0, "mma tiles are 16 deep");
   constexpr int BQM = NW * 16;  // query rows per block
   constexpr int NTM = NW * 32;
@@ -492,15 +504,20 @@ __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // out = acc / l (l == 0: no tile at all, zeros), staged through this warp's
-  // own Q rows so that the stores to device memory are 16 bytes a lane
+  // out = acc / l, zeros for a row no key was visible to (with no tile at
+  // all, l == 0), staged through this warp's own Q rows so that the stores to
+  // device memory are 16 bytes a lane; lse = m ln 2 + ln l (m in log2 units)
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / (l == 0.f ? 1.f : l);
+    const bool seen = m_r[r] != kNegInf;
+    inv[r] = seen ? 1.f / l : 0.f;
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t == 0 && row < Sq)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = seen ? m_r[r] * kLn2 + logf(l) : kNegInf;
   }
   bf16* Os = Qs + warp * 16 * LD;
 #pragma unroll
@@ -521,8 +538,8 @@ __global__ void __launch_bounds__(NW * 32, (Occupancy<NW, D>::kMinBlocks))
 }
 
 template <int D>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
-                        int Skv, int H, int KVH, int causal, int window, int q_offset,
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
+                        int Sq, int Skv, int H, int KVH, int causal, int window, int q_offset,
                         float sm_scale, float softcap, cudaStream_t stream) {
   constexpr int NW = MMA_WARPS;
   const int nq = (Sq + NW * 16 - 1) / (NW * 16);
@@ -533,23 +550,23 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, nq);
-  kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, o, Sq, Skv, H, KVH, causal, window,
+  kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, o, lse, Sq, Skv, H, KVH, causal, window,
                                           q_offset, sm_scale, softcap);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, int B,
-                     int Sq, int Skv, int H, int KVH, int causal, int window, int q_offset,
-                     float sm_scale, float softcap, cudaStream_t stream) {
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int Sq, int Skv, int H, int KVH, int causal, int window,
+                     int q_offset, float sm_scale, float softcap, cudaStream_t stream) {
   if (dtype == kFloat32)
     return launch_fp32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Skv,
-                          H, KVH, causal, window, q_offset, sm_scale, softcap, stream);
+                          static_cast<const float*>(v), static_cast<float*>(o), lse, B, Sq,
+                          Skv, H, KVH, causal, window, q_offset, sm_scale, softcap, stream);
   if (dtype == kBFloat16)
     return launch_bf16<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), static_cast<bf16*>(o), B, Sq, Skv, H,
-                          KVH, causal, window, q_offset, sm_scale, softcap, stream);
+                          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, Sq, Skv,
+                          H, KVH, causal, window, q_offset, sm_scale, softcap, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -558,28 +575,30 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, voi
 // Returns the CUDA error of the launch (0 on success); the wrapper raises on
 // anything else. The caller checks shapes, dtypes, devices, alignment and
 // contiguity. bf16 runs the tensor-core kernel, fp32 the CUDA-core one.
+// `lse` may be null (serving): then it is not written.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Sq, int Skv, int H, int KVH, int D,
-                                   int causal, int window, int q_offset, float sm_scale,
-                                   float softcap, void* stream) {
+                                   void* lse_out, int dtype, int B, int Sq, int Skv, int H,
+                                   int KVH, int D, int causal, int window, int q_offset,
+                                   float sm_scale, float softcap, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
     case 16:  // the smoke configs' head dim: fp32 only (the mma path wants D >= 32)
       if (dtype != kFloat32) return cudaErrorInvalidValue;
       return launch_fp32<16>(static_cast<const float*>(q), static_cast<const float*>(k),
-                             static_cast<const float*>(v), static_cast<float*>(o), B, Sq, Skv,
-                             H, KVH, causal, window, q_offset, sm_scale, softcap, st);
+                             static_cast<const float*>(v), static_cast<float*>(o), lse, B, Sq,
+                             Skv, H, KVH, causal, window, q_offset, sm_scale, softcap, st);
     case 32:
-      return launch_d<32>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
+      return launch_d<32>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KVH, causal, window, q_offset,
                           sm_scale, softcap, st);
     case 64:
-      return launch_d<64>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
+      return launch_d<64>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KVH, causal, window, q_offset,
                           sm_scale, softcap, st);
     case 128:
-      return launch_d<128>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
+      return launch_d<128>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KVH, causal, window, q_offset,
                            sm_scale, softcap, st);
     case 256:
-      return launch_d<256>(dtype, q, k, v, o, B, Sq, Skv, H, KVH, causal, window, q_offset,
+      return launch_d<256>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KVH, causal, window, q_offset,
                            sm_scale, softcap, st);
     default:
       return cudaErrorInvalidValue;

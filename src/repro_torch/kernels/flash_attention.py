@@ -1,36 +1,141 @@
-"""Prefill attention: the wrapper of the hand-written CUDA kernel.
+"""Prefill and training attention: the wrappers of the hand-written CUDA kernels.
 
 Replaces ``repro.kernels.flash_attention.flash_attention``
-(src/repro/kernels/flash_attention.py:120, Pallas body ``_flash_kernel``).
-The kernel is ``csrc/flash_attention.cu``; its plain version, which a CPU
-tensor takes, is :func:`repro_torch.kernels.ref.attention_ref`.
+(src/repro/kernels/flash_attention.py:120, Pallas body ``_flash_kernel``)
+and the backward of ``repro.kernels.flash_vjp`` (``_make`` ``bwd``,
+src/repro/kernels/flash_vjp.py:101-142). The kernels are
+``csrc/flash_attention.cu`` (the forward, which also writes each row's
+log-sum-exp when training asks for it) and ``csrc/flash_attention_bwd.cu``
+(dq, dk, dv). The plain version of the attention, which a CPU tensor takes
+(autograd differentiates it there), is
+:func:`repro_torch.kernels.ref.attention_ref`; the plain versions of the
+forward with ``lse`` and of the backward are ``kernels/flash_vjp.py``'s
+:func:`~repro_torch.kernels.flash_vjp.flash_fwd` and
+:func:`~repro_torch.kernels.flash_vjp.flash_bwd`.
 
-What bounds it on the H100: at llama3.2-1b's serving prefill (B=8, S=256,
-32 query heads, 8 kv heads, D=64, bf16, causal) the work is about 2.2 GFLOP
-against 21 MB of q, k, v and output, so the card's bound is the bytes
-(6.3 us at 3.35 TB/s, against 2.2 us at 989 TFLOP/s bf16). What the design
-does about it: one block per (64-row q tile, batch x head) loads its q tile
-once and streams the kv head's tiles through shared memory, skipping tiles
-outside the causal or window support, and never writes scores to device
-memory. bf16 runs both products on the tensor cores (``mma.sync``, P rounded
-to bf16 for the second) with the tiles in a double-buffered ``cp.async``
-ring; fp32 keeps CUDA-core FMAs so that it holds the fp32 tolerance. The
-source's note has the details.
+On a CUDA tensor that needs a gradient, :func:`flash_attention` goes through
+:class:`FlashAttention`: the forward kernel with ``lse``, then the backward
+kernel. Without a gradient it launches the forward alone, as serving does.
+A failed build or launch raises; nothing falls back to the plain version.
+
+What bounds them on the H100: at llama3.2-1b's serving prefill and training
+shape (B=8, S=256, 32 query heads, 8 kv heads, D=64, bf16, causal) the
+forward is about 2.2 GFLOP against 21 MB of q, k, v and output, so the
+card's bound is the bytes (6.3 us at 3.35 TB/s, against 2.2 us at 989
+TFLOP/s bf16); the backward's five products are 5.4 GFLOP against 42 MB
+(12.6 us at 3.35 TB/s).
+What the designs do about it: the forward's blocks (a 64-row q tile each)
+load their q tile once and stream the kv head's tiles through shared memory,
+skipping tiles outside the causal or window support, and never write scores
+to device memory; bf16 runs both products on the tensor cores (``mma.sync``,
+P rounded to bf16 for the second) with the tiles in a double-buffered
+``cp.async`` ring; fp32 keeps CUDA-core FMAs so that it holds the fp32
+tolerance. The backward is the simple first version (CUDA-core FMAs, no
+atomics, so it is deterministic). The sources' notes have the details.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from . import flash_vjp
 from .ref import attention_ref as plain
 
 KERNEL = _build.CudaKernel(
     "flash_attention.cu", "flash_attention_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 )
+BWD_KERNEL = _build.CudaKernel(
+    "flash_attention_bwd.cu", "flash_attention_bwd",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+)
+
+
+def _shapes(name: str, q, k, v, **more) -> Tuple[int, ...]:
+    """(b, sq, skv, h, kvh, d) of a GQA attention the kernels take; raises otherwise."""
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    _build.check_cuda_inputs(name, {"q": q, "k": k, "v": v, **more}, d)
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not form a GQA attention")
+    if sq == 0 or b * h > 65535:
+        raise ValueError(f"{name}: grid of {sq} query rows x {b * h} heads out of range")
+    return b, sq, skv, h, kvh, d
+
+
+def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
+    return float(sm_scale) if sm_scale is not None else q.shape[3] ** -0.5
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int, sm_scale: Optional[float],
+                        softcap: float, q_offset: int,
+                        with_lse: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse (B, H, Sq) fp32 or None): the forward kernel for a CUDA
+    tensor, ``flash_vjp.flash_fwd`` for a CPU one."""
+    scale = _scale(q, sm_scale)
+    if q.device.type == "cpu":
+        out, lse = flash_vjp.flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
+                                       softcap=softcap, q_offset=q_offset,
+                                       chunk=min(512, k.shape[1]))
+        return out, (lse if with_lse else None)
+    b, sq, skv, h, kvh, d = _shapes("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    KERNEL.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        _build.DTYPE_CODES[q.dtype], b, sq, skv, h, kvh, d,
+        int(causal), int(window), int(q_offset), scale, float(softcap),
+    )
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
+                        sm_scale: Optional[float], softcap: float,
+                        q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the backward kernel for CUDA tensors, ``flash_vjp.flash_bwd``
+    for CPU ones. ``out`` and ``lse`` are the forward's."""
+    scale = _scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return flash_vjp.flash_bwd(q, k, v, out, lse, dout, causal=causal, window=window,
+                                   scale=scale, softcap=softcap, q_offset=q_offset,
+                                   chunk=min(512, k.shape[1]))
+    b, sq, skv, h, kvh, d = _shapes("flash_attention_bwd", q, k, v, out=out, dout=dout)
+    if (out.shape != q.shape or dout.shape != q.shape or lse.dtype != torch.float32
+            or lse.shape != (b, h, sq) or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} and a contiguous fp32 lse ({b}, {h}, {sq}) "
+                         f"on {q.device} expected; lse is {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    BWD_KERNEL.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, sq, skv, h, kvh, d,
+        int(causal), int(window), int(q_offset), scale, float(softcap),
+    )
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernels as one differentiable op: the forward kernel with ``lse``,
+    saved with (q, k, v, out); the backward kernel from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw), None)
 
 
 def flash_attention(
@@ -44,23 +149,12 @@ def flash_attention(
     softcap: float = 0.0,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """GQA attention; the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    """GQA attention: the CUDA kernels for a CUDA tensor (differentiable when
+    an input needs a gradient), the plain version for a CPU one."""
+    kw = dict(causal=bool(causal), window=int(window), sm_scale=sm_scale,
+              softcap=float(softcap), q_offset=int(q_offset))
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
-                     softcap=softcap, q_offset=q_offset)
-    b, sq, h, d = q.shape
-    _, skv, kvh, _ = k.shape
-    _build.check_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v}, d)
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not form a GQA attention")
-    if sq == 0 or b * h > 65535:
-        raise ValueError(f"flash_attention: grid of {sq} query rows x {b * h} heads out of range")
-    scale = float(sm_scale) if sm_scale is not None else d ** -0.5
-    out = torch.empty_like(q)
-    KERNEL.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, sq, skv, h, kvh, d,
-        int(causal), int(window), int(q_offset), scale, float(softcap),
-    )
-    return out
+        return plain(q, k, v, **kw)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kw)
+    return flash_attention_fwd(q, k, v, **kw, with_lse=False)[0]

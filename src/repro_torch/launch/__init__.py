@@ -1,1 +1,1 @@
-"""Entry points: the model server and the fleet."""
+"""Entry points: the model server and the fleet, and the trainer."""

@@ -93,6 +93,18 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return _logits(p, cfg, x), aux
 
 
+def hidden_forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward returning the final normed hidden states (no unembed) and the
+    MoE's aux loss: the chunked-loss training path, so that the (B, S, V)
+    logits are never materialized. Decoder-only models."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("hidden_forward: an encoder-decoder model trains through forward")
+    x = _embed_inputs(p, cfg, batch)
+    x, aux = transformer.stack_apply(p["stack"], cfg, x, _positions(cfg, batch), impl=impl)
+    return apply_norm(p["final_norm"], x, cfg.norm), aux
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, *,
             impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """Run the prompt; return (last-position logits (B, 1, V), per-layer caches).

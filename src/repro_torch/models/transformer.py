@@ -9,12 +9,23 @@ per-layer parameter dicts, and the cache one list of per-layer cache dicts
 (a KV cache for an attention layer, ``{"h", "conv_buf"}`` for an RG-LRU one,
 ``{"C", "n", "m", "conv_buf"}`` for an mLSTM one, ``{"c", "n", "h", "m"}``
 for an sLSTM one), walked by a Python loop beside ``cfg.pattern()``.
+
+Under autograd, ``stack_apply`` rematerializes each block by ``cfg.remat``,
+as the reference's ``jax.checkpoint`` of its scan body: ``"none"`` keeps
+every activation, ``"full"`` keeps a block's inputs and recomputes the rest
+in backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+plain matrix products (``aten.mm`` / ``addmm``, the counterpart of
+``checkpoint_dots_with_no_batch_dims``: batched products are recomputed).
+All three give the same gradients.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ATTN, MLSTM, RECUR, SLSTM
 from . import attention as attn
@@ -129,11 +140,32 @@ def stack_init(gen: torch.Generator, cfg) -> Params:
     return {"layers": [block_init(gen, cfg, kind) for kind in cfg.pattern()]}
 
 
+# the products "dots" keeps: plain (unbatched) matrix products
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under ``cfg.remat`` (a no-op without autograd, as in serving)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r} not in ('none', 'full', 'dots')")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def stack_apply(p: Params, cfg, x, positions, *,
                 impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(p["layers"], cfg.pattern()):
-        x, aux_i = block_apply(lp, cfg, kind, x, positions, impl=impl)
+        fn = _remat(functools.partial(block_apply, lp, cfg, kind, impl=impl), cfg)
+        x, aux_i = fn(x, positions)
         aux = aux + aux_i
     return x, aux
 

@@ -1,13 +1,17 @@
-"""AdamW over the port's pytrees, with float32 moments.
+"""AdamW over the port's pytrees, with optional 8-bit quantized moments.
 
-The port of the part of ``repro.optim.adamw`` that the scheduler's learning
-solvers use (PPO, GT-DRL, DDPG). The 8-bit and bfloat16 moments belong to
-training (ROADMAP.md A.11) and raise here.
+The port of ``repro.optim.adamw``. Moments are float32 by default,
+bfloat16 with ``moment_dtype="bfloat16"``, or blockwise absmax int8 with
+``quantize_moments`` (blocks of 256 of the flattened leaf, scale = absmax /
+127, requantized every step; ``torch.round`` rounds half to even as
+``jnp.round`` does, so the codes equal the reference's).
 
-A batch of independent agents is stacked along a leading axis on every leaf,
-as ``jax.vmap`` of the reference gives it. ``state.step`` then has that axis
-too, and each agent is clipped by its own gradient norm, over its own leaves:
-a norm over the whole stack would couple the agents through the clip.
+A batch of independent agents (the scheduler's learning solvers: PPO,
+GT-DRL, DDPG) is stacked along a leading axis on every leaf, as ``jax.vmap``
+of the reference gives it. ``state.step`` then has that axis too, and each
+agent is clipped by its own gradient norm, over its own leaves: a norm over
+the whole stack would couple the agents through the clip. Stacked agents
+keep float32 moments.
 """
 from __future__ import annotations
 
@@ -15,11 +19,14 @@ import dataclasses
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..dcsim import ties
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
+
+QBLOCK = 256  # absmax quantization block (flattened)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,11 +41,55 @@ class AdamWConfig:
     moment_dtype: str = "float32"
 
 
-def _check(cfg: AdamWConfig) -> None:
-    if cfg.quantize_moments or cfg.moment_dtype != "float32":
-        raise NotImplementedError(
-            "the port's AdamW keeps float32 moments; quantized and bfloat16 moments "
-            "belong to training: ROADMAP.md A.11")
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# int8 blockwise quantization
+# ---------------------------------------------------------------------------
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    flat = x.reshape(-1)
+    flat = F.pad(flat, (0, (-flat.numel()) % QBLOCK))
+    blocks = flat.reshape(-1, QBLOCK)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, 1.0, scale)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    flat = (q.to(torch.float32) * scale).reshape(-1)
+    n = 1
+    for d in shape:
+        n *= d
+    return flat[:n].reshape(shape)
+
+
+class _QTensor(NamedTuple):
+    q: torch.Tensor      # int8 (blocks, QBLOCK)
+    scale: torch.Tensor  # float32 (blocks, 1)
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, _QTensor)
+
+
+def _weak(c: float, x: torch.Tensor) -> torch.Tensor:
+    """``c * x`` with ``c`` in ``x``'s dtype first, as JAX applies a Python
+    scalar (weakly typed): a bfloat16 moment is scaled by bf16(0.9) =
+    0.8984375, where torch would scale by 0.9 and round once."""
+    return torch.tensor(c, dtype=x.dtype) * x
+
+
+def _moment_read(m, shape) -> torch.Tensor:
+    return _dequantize(m.q, m.scale, shape) if isinstance(m, _QTensor) else m
+
+
+def _moment_write(val: torch.Tensor, cfg: "AdamWConfig"):
+    if cfg.quantize_moments:
+        return _QTensor(*_quantize(val))
+    return val.to(MOMENT_DTYPES[cfg.moment_dtype])
 
 
 class OptState(NamedTuple):
@@ -50,9 +101,10 @@ class OptState(NamedTuple):
 def adamw_init(params: Params, cfg: AdamWConfig, lead: Tuple[int, ...] = ()) -> OptState:
     """Zero moments. For agents stacked along the leading ``lead`` axes,
     ``step`` has those axes (the shape of the JAX package's vmapped init)."""
-    _check(cfg)
+    if lead and (cfg.quantize_moments or cfg.moment_dtype != "float32"):
+        raise ValueError("stacked agents keep float32 moments")
     device = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    zeros = lambda p: _moment_write(torch.zeros_like(p, dtype=torch.float32), cfg)
     return OptState(torch.zeros(lead, dtype=torch.int32, device=device),
                     tree_map(zeros, params), tree_map(zeros, params))
 
@@ -79,7 +131,6 @@ def adamw_update(
     lr_scale: float = 1.0,
 ) -> Tuple[Params, OptState, dict]:
     """One AdamW step. Returns (new_params, new_state, metrics)."""
-    _check(cfg)
     nb = state.step.ndim  # stacked agents: one clip and one bias correction each
     step = state.step + 1
     gnorm = global_norm(grads, nb)
@@ -96,19 +147,21 @@ def adamw_update(
 
     def upd(p, g, mu, nu):
         g = g.float() * per_agent(clip, p)
-        m = b1 * mu + (1 - b1) * g
-        v = b2 * nu + (1 - b2) * g * g
+        m = _weak(b1, _moment_read(mu, p.shape)) + (1 - b1) * g
+        v = _weak(b2, _moment_read(nu, p.shape)) + (1 - b2) * g * g
         mhat = m / per_agent(bc1, p)
         vhat = v / per_agent(bc2, p)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        out.append(((p.float() - lr * delta).to(p.dtype), m, v))
+        out.append(((p.float() - lr * delta).to(p.dtype), _moment_write(m, cfg),
+                    _moment_write(v, cfg)))
 
     out = []
-    tree_map(upd, params, grads, state.mu, state.nu)
+    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state.mu, _is_q), tree_leaves(state.nu, _is_q)):
+        upd(p, g, mu, nu)
 
     def pick(j):
-        it = iter(o[j] for o in out)
-        return tree_map(lambda _: next(it), params)
+        return tree_unflatten(params, [o[j] for o in out])
 
     metrics = {"grad_norm": gnorm, "lr": lr}
     return pick(0), OptState(step, pick(1), pick(2)), metrics

@@ -1,1 +1,1 @@
-"""Step functions the servers and tests call."""
+"""Step functions: the train step, and the serving steps the servers call."""

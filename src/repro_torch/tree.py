@@ -7,7 +7,7 @@ so a sum over the leaves runs in the reference's order.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -22,12 +22,15 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves in JAX's order (sorted dict keys, sequence order)."""
+def tree_leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Any]:
+    """The leaves in JAX's order (sorted dict keys, sequence order); a node
+    that ``is_leaf`` accepts is kept whole, as ``jax.tree_util``'s ``is_leaf``."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (tuple, list)):
-        return [x for c in tree for x in tree_leaves(c)]
+        return [x for c in tree for x in tree_leaves(c, is_leaf)]
     return [tree]
 
 

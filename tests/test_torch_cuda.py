@@ -4,8 +4,10 @@ The cases are ``chip_smoke.py``'s: those of ``tests/test_kernels.py`` plus
 softcap, ``q_offset``, ragged-tile, one-query-row and explicit-length cases,
 head dims 16 (fp32) and 256 (both dtypes; recurrentgemma-9b's MQA), and
 whisper-base's non-causal shapes at its serving batch
-(``tests/test_torch_kernels.py`` checks that the copies agree). This file imports no JAX, so it runs on a GPU machine
-without it:
+(``tests/test_torch_kernels.py`` checks that the copies agree); the
+backward kernel against ``kernels/flash_vjp.py`` on ``[kernel-bwd]``'s
+cases, and a smoke train step through both kernels against ``impl="ref"``.
+This file imports no JAX, so it runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -25,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import flash_vjp as tflash_vjp
 from repro_torch.kernels import ref as tref
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -195,3 +198,81 @@ def test_three_arch_fleet_serves_on_the_card(cuda):
     dense, an MoE and a hybrid arch (smoke widths) through both kernels, every
     server's logits those of ``impl="ref"``."""
     chip_smoke.serve_fleet_phase(cuda)
+
+
+def _grads(fn, q, k, v, g):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    return (out, *torch.autograd.grad(out, (q, k, v), g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.BWD_CASES + [chip_smoke.TRAIN_ATTN_CASE])
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """dq, dk, dv through the forward kernel (with lse) and the backward
+    kernel against flash_vjp's plain forward and backward: fp32 max abs,
+    bf16 relative norm (chip_smoke.BWD_TOL)."""
+    b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
+    if d == 16 and dtype != torch.float32:
+        pytest.skip("head dim 16 is fp32 only")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, (b, sq, h, d), dtype, cuda)
+    k, v = (_randn(gen, (b, skv, kvh, d), dtype, cuda) for _ in range(2))
+    g = _randn(gen, (b, sq, h, d), dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    launches = (tflash.KERNEL.launches, tflash.BWD_KERNEL.launches)
+    got = _grads(lambda *a: tflash.flash_attention(*a, **kw), q, k, v, g)
+    torch.cuda.synchronize()
+    assert (tflash.KERNEL.launches, tflash.BWD_KERNEL.launches) == (launches[0] + 1,
+                                                                    launches[1] + 1)
+    want = _grads(lambda *a: tflash_vjp.flash_attention_torch(*a, **kw), q, k, v, g)
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == dtype and a.shape == w.shape
+        err = (float((a.float() - w.float()).abs().max()) if dtype == torch.float32
+               else float((a.float() - w.float()).norm() / w.float().norm()))
+        assert err < chip_smoke.BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_fully_masked_row_gives_zeros_and_zero_grads(cuda):
+    """ROADMAP C: a query row no key is visible to (q_offset past the window)
+    outputs zeros through the forward kernel and gets zero gradients from the
+    backward kernel; its lse is the finite NEG_INF (-0.7 of the largest
+    float32). The reference's jnp path
+    (flash_vjp, as tests/test_torch_flash_vjp.py pins) averages V there."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, (1, 8, 2, 32), torch.float32, cuda) for _ in range(3))
+    kw = dict(causal=True, window=2, softcap=0.0, q_offset=20)
+    out, dq, dk, dv = _grads(lambda *a: tflash.flash_attention(*a, **kw), q, k, v,
+                             torch.ones_like(q))
+    _, lse = tflash.flash_attention_fwd(q, k, v, sm_scale=None, **kw)
+    torch.cuda.synchronize()
+    assert not out.any() and not dq.any() and not dk.any() and not dv.any()
+    assert bool((lse < -1e38).all())
+    plain = tflash_vjp.flash_attention_torch(q, k, v, **kw)
+    assert float(plain.abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_train_step_through_the_kernels(cuda):
+    """One smoke train step of llama3.2-1b and of whisper-base (fp32, head dim
+    16) through both flash kernels against impl="ref" on the card: loss at
+    rtol 1e-5, every gradient at 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    for arch in ("llama3.2-1b", "whisper-base"):
+        cfg = get_config(arch).smoke()
+        params = init_train_state(cfg, AdamWConfig(), seed=0, device=cuda).params
+        batch = make_batch(cfg, seed=3, step=0, batch=2, seq=32, device=cuda)
+        bwd = tflash.BWD_KERNEL.launches
+        loss, _, grads = loss_and_grads(params, cfg, batch)
+        assert tflash.BWD_KERNEL.launches > bwd
+        want_loss, _, want = loss_and_grads(params, cfg, batch, impl="ref")
+        assert abs(float(loss) / float(want_loss) - 1) < 1e-5
+        for a, w in zip(tree_leaves(grads), tree_leaves(want)):
+            assert torch.allclose(a, w, rtol=1e-4, atol=1e-4)

@@ -183,10 +183,16 @@ def test_adamw_update_matches_jax(stacked, grad_scale):
 
 
 def test_adamw_quantized_moments_raise():
+    """Quantized and bf16 moments train (ROADMAP A.11, held against JAX in
+    tests/test_torch_optim.py); the solvers' stacked agents keep float32
+    moments, and other moments raise there."""
     p = {"w": torch.zeros(3)}
     for cfg in (TA.AdamWConfig(quantize_moments=True), TA.AdamWConfig(moment_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            TA.adamw_init(p, cfg)
+        mu = TA.adamw_init(p, cfg).mu["w"]
+        assert (isinstance(mu, TA._QTensor) if cfg.quantize_moments
+                else mu.dtype == torch.bfloat16)
+        with pytest.raises(ValueError, match="float32"):
+            TA.adamw_init({"w": torch.zeros(2, 3)}, cfg, (2,))
 
 
 # ---------------------------------------------------------------------------
