@@ -240,8 +240,11 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # through autograd from the same inputs and output cotangent. The cases of
 # tests/test_kernels.py::test_flash_vjp_gradients (softcap 0 and 30), window
 # + GQA, q_offset with Sq < Skv, non-causal Sq != Skv, D = 16 (fp32 only) and
-# D = 256, then llama3.2-1b's training shape (TRAIN_ATTN_CASE).
+# D = 256 (MQA_BWD_CASE, a group of 8 over one kv head), arctic-480b's group
+# of 7 (a head split of 1 or 7) and recurrentgemma-9b's group of 16 at D = 256
+# with its window, then llama3.2-1b's training shape (TRAIN_ATTN_CASE).
 # (b, sq, skv, h, kvh, d, causal, window, softcap, q_offset)
+MQA_BWD_CASE = (1, 200, 200, 8, 1, 256, True, 0, 0.0, 0)
 BWD_CASES = [
     (1, 256, 256, 4, 2, 32, True, 0, 0.0, 0),
     (1, 256, 256, 4, 2, 32, True, 0, 30.0, 0),
@@ -251,10 +254,15 @@ BWD_CASES = [
     (1, 128, 200, 4, 2, 128, False, 0, 0.0, 0),
     (3, 4, 150, 8, 2, 64, False, 0, 0.0, 0),
     (2, 100, 100, 4, 2, 16, True, 0, 0.0, 0),
-    (1, 200, 200, 8, 1, 256, True, 0, 0.0, 0),
+    MQA_BWD_CASE,
     (1, 130, 70, 4, 4, 256, False, 0, 0.0, 0),
+    (1, 256, 256, 14, 2, 128, True, 0, 0.0, 0),
+    (1, 256, 256, 16, 1, 256, True, 64, 0.0, 0),
 ]
 TRAIN_ATTN_CASE = (8, 256, 256, 32, 8, 64, True, 0, 0.0, 0)
+# the cases whose rows also give each backward kernel's device time
+BWD_SPLIT_CASES = (TRAIN_ATTN_CASE, MQA_BWD_CASE)
+BWD_PARTS = ("delta", "dkdv", "reduce", "dq")
 # dq, dk, dv against the plain backward. fp32: max abs, summation order over
 # up to 384 keys of O(10) gradients (2.1e-5 at most on an H100 80GB HBM3);
 # bf16: relative norm, the gradients' own bf16 rounding (2^-8 an element,
@@ -1956,13 +1964,38 @@ def _positions_mask(sq: int, skv: int, causal: bool, window: int, q_offset: int,
     return ok
 
 
-def bwd_row(randn, case, dtype) -> dict:
+def bwd_kernel_ms(fn, iters: int = 20) -> dict:
+    """Device ms a call of each of the backward's kernels (delta, dk/dv, the
+    head split's reduce, dq), by torch.profiler over ``iters`` calls of ``fn``
+    back to back; "not measured" where the profiler saw none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        part = next((p for p in BWD_PARTS if f"bwd_{p}_" in e.key), None)
+        if (part and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            ms[part] = ms.get(part, 0.0) + e.self_device_time_total / 1e3 / iters
+    if not ms:
+        return {f"{p}_ms": "not measured" for p in BWD_PARTS}
+    return {f"{p}_ms": ms.get(p, 0.0) for p in BWD_PARTS}
+
+
+def bwd_row(randn, case, dtype, flush: torch.Tensor) -> dict:
     """The backward kernel at one case: dq, dk, dv through autograd (the
     forward kernel with lse, then the backward kernel) against flash_vjp's
-    plain forward and backward from the same inputs and cotangent; then the
-    backward kernel alone timed against the plain backward, the library's
-    backward (scaled_dot_product_attention with enable_gqa, through
-    autograd; none under a softcap, which it does not take) and the bound."""
+    plain forward and backward from the same inputs and cotangent; a second
+    call of the backward kernel bit-equal to the first; then the backward
+    kernel alone timed, warm and L2-flushed, against the plain backward, the
+    library's backward (scaled_dot_product_attention with enable_gqa, through
+    autograd; none under a softcap, which it does not take) and the bound, and
+    at BWD_SPLIT_CASES each of its kernels' device time."""
     F = torch.nn.functional
     b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
@@ -1986,14 +2019,19 @@ def bwd_row(randn, case, dtype) -> dict:
     po, plse = flash_vjp.flash_fwd(q, k, v, scale=scale, chunk=chunk, **kw)
     kernel = lambda: flash_mod.flash_attention_bwd(q, k, v, o, lse, g, sm_scale=None, **kw)
     plain = lambda: flash_vjp.flash_bwd(q, k, v, po, plse, g, scale=scale, chunk=chunk, **kw)
-    library_ms = None
+    first, second = kernel(), kernel()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"flash_attention_bwd {case} {dtype}: two calls on the same inputs differ")
+    library_ms = library_cold = None
     if softcap == 0.0:
         lq, lk, lv = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
         mask = _positions_mask(sq, skv, causal, window, q_offset, q.device)
         lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, enable_gqa=True)
         lg = g.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
-                                                         retain_graph=True), iters=10)
+        library = lambda: torch.autograd.grad(lout, (lq, lk, lv), lg, retain_graph=True)
+        library_ms = time_ms(library, iters=10)
+        library_cold = time_ms(library, iters=10, flush=flush)
+    split = bwd_kernel_ms(kernel) if case in BWD_SPLIT_CASES else {}
     elt = q.element_size()
     nbytes = elt * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
     flops = 10 * b * h * d * attn_pairs(sq, skv, causal, window, q_offset)
@@ -2004,10 +2042,12 @@ def bwd_row(randn, case, dtype) -> dict:
                 grad_err=err, err_measure="max_abs" if dtype == torch.float32 else "rel_norm",
                 max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
                 out_max_abs_err=max_err(out.detach(), plain_out.detach()),
-                lse_max_abs_err=max_err(lse, plse),
+                lse_max_abs_err=max_err(lse, plse), repeat_bit_equal=True,
+                splits=flash_mod._bwd_plan(b, sq, skv, h, kvh, d, dtype).splits,
                 ms=time_ms(kernel, iters=10), plain_ms=time_ms(plain, iters=5),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                bytes=nbytes, flops=flops)
+                ms_cold_l2=time_ms(kernel, iters=10, flush=flush),
+                library_ms_cold_l2=library_cold, **split, bytes=nbytes, flops=flops)
 
 
 def kernel_bwd_phase(randn, records: dict) -> None:
@@ -2015,11 +2055,12 @@ def kernel_bwd_phase(randn, records: dict) -> None:
     llama3.2-1b's training shape in both dtypes; the bf16 training row is the
     kernel's record."""
     rows = []
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=torch.device("cuda"))
     for dtype in (torch.float32, torch.bfloat16):
         for case in BWD_CASES + [TRAIN_ATTN_CASE]:
             if case[5] in _build.FP32_HEAD_DIMS and dtype != torch.float32:
                 continue
-            row = bwd_row(randn, case, dtype)
+            row = bwd_row(randn, case, dtype, flush)
             rows.append(row)
             phase("kernel-bwd", **row, tol=BWD_TOL[dtype])
     main = rows[-1]

@@ -30,13 +30,21 @@ skipping tiles outside the causal or window support, and never write scores
 to device memory; bf16 runs both products on the tensor cores (``mma.sync``,
 P rounded to bf16 for the second) with the tiles in a double-buffered
 ``cp.async`` ring; fp32 keeps CUDA-core FMAs so that it holds the fp32
-tolerance. The backward is the simple first version (CUDA-core FMAs, no
-atomics, so it is deterministic). The sources' notes have the details.
+tolerance. The backward recomputes the scores in two kernels, one that owns
+a key tile (dk, dv) and one that owns a query tile (dq), so that no block
+adds into another's rows: it has no atomics and gives the same bits from run
+to run. In bf16 all five of its products run on the tensor cores
+(``mma.sync``, P and dS rounded to bf16 as operands straight from
+registers) with the Q/dO and K/V tiles in ``cp.async`` rings; fp32 keeps
+CUDA-core FMAs. Where the key tiles give the card less than a wave of
+blocks, :func:`_bwd_plan` splits each kv head's GQA group over several
+blocks and a reduce kernel sums their fp32 partials in a fixed order. The
+sources' notes have the details.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,8 +58,42 @@ KERNEL = _build.CudaKernel(
 )
 BWD_KERNEL = _build.CudaKernel(
     "flash_attention_bwd.cu", "flash_attention_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 )
+# the H100's SMs: the dk/dv grid the backward's head split aims to fill
+H100_SMS = 132
+CUDA_GRID_X, CUDA_GRID_Y = 2 ** 31 - 1, 65535
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel splits its dk/dv work (``csrc/flash_attention_bwd.cu``)."""
+    splits: int                          # blocks each kv head's GQA group is split over
+    grid: Tuple[int, int]                # dk/dv grid: (batch x kv heads x splits, key tiles)
+    scratch: Optional[Tuple[int, ...]]   # fp32 partial dk and dv, (2, splits, B, Skv, KVH, D)
+
+
+def _bwd_key_tile(d: int, dtype: torch.dtype) -> int:
+    """Keys of a dk/dv block: the kernel's ``Mma<D>::BKV`` in bf16 (32 at
+    D <= 64, 64 above), ``Tile<D>::B`` in fp32 (64, 32 at D = 256)."""
+    if dtype == torch.bfloat16:
+        return 32 if d <= 64 else 64
+    return 32 if d > 128 else 64
+
+
+def _bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int, d: int,
+              dtype: torch.dtype) -> BwdPlan:
+    """The smallest divisor of the GQA group that gives the dk/dv grid at
+    least one block for each of the H100's 132 SMs, or the whole group if none
+    does. A dk/dv block owns a key tile (:func:`_bwd_key_tile`), so a short
+    sequence with few kv heads (MQA) has few blocks, and each would walk its
+    whole group alone. With ``splits`` > 1 each split writes fp32 partials
+    into ``scratch`` and a reduce kernel sums them in split order."""
+    group = h // kvh
+    key_tiles = -(-skv // _bwd_key_tile(d, dtype))
+    splits = next((s for s in range(1, group + 1)
+                   if group % s == 0 and key_tiles * b * kvh * s >= H100_SMS), group)
+    scratch = (2, splits, b, skv, kvh, d) if splits > 1 else None
+    return BwdPlan(splits, (b * kvh * splits, key_tiles), scratch)
 
 
 def _shapes(name: str, q, k, v, **more) -> Tuple[int, ...]:
@@ -62,8 +104,11 @@ def _shapes(name: str, q, k, v, **more) -> Tuple[int, ...]:
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not form a GQA attention")
-    if sq == 0 or b * h > 65535:
-        raise ValueError(f"{name}: grid of {sq} query rows x {b * h} heads out of range")
+    # the kernels' grids put b * h (fp32: query tiles, b * h), 64-row query
+    # tiles and the backward's 32- or 64-key tiles on y
+    if sq == 0 or max(b * h, -(-sq // 64), -(-skv // 32)) > CUDA_GRID_Y:
+        raise ValueError(f"{name}: grid of {sq} query rows, {skv} keys x {b * h} heads "
+                         "out of range")
     return b, sq, skv, h, kvh, d
 
 
@@ -110,13 +155,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool, window: int,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)} and a contiguous fp32 lse ({b}, {h}, {sq}) "
                          f"on {q.device} expected; lse is {lse.dtype} {tuple(lse.shape)}")
+    plan = _bwd_plan(b, sq, skv, h, kvh, d, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+               if plan.scratch else None)
     BWD_KERNEL.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         _build.DTYPE_CODES[q.dtype], b, sq, skv, h, kvh, d,
-        int(causal), int(window), int(q_offset), scale, float(softcap),
+        int(causal), int(window), int(q_offset), plan.splits, scale, float(softcap),
     )
     return dq, dk, dv
 

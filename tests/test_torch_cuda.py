@@ -6,7 +6,8 @@ head dims 16 (fp32) and 256 (both dtypes; recurrentgemma-9b's MQA), and
 whisper-base's non-causal shapes at its serving batch
 (``tests/test_torch_kernels.py`` checks that the copies agree); the
 backward kernel against ``kernels/flash_vjp.py`` on ``[kernel-bwd]``'s
-cases, and a smoke train step through both kernels against ``impl="ref"``.
+cases (two of its calls bit-equal at the training shape and the MQA case),
+and a smoke train step through both kernels against ``impl="ref"``.
 This file imports no JAX, so it runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -232,6 +233,25 @@ def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
         err = (float((a.float() - w.float()).abs().max()) if dtype == torch.float32
                else float((a.float() - w.float()).norm() / w.float().norm()))
         assert err < chip_smoke.BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.BWD_SPLIT_CASES)
+def test_flash_bwd_kernel_is_deterministic(cuda, case, dtype):
+    """Two backward calls on the same inputs give bit-equal dq, dk and dv (the
+    kernels have no atomics; the MQA case's head split is summed in a fixed
+    order): the trainer's bit-equal resume relies on it."""
+    b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, g = (_randn(gen, (b, sq, h, d), dtype, cuda) for _ in range(2))
+    k, v = (_randn(gen, (b, skv, kvh, d), dtype, cuda) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset, sm_scale=None)
+    out, lse = tflash.flash_attention_fwd(q, k, v, **kw)
+    first = tflash.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    second = tflash.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(first, second))
 
 
 @pytest.mark.cuda

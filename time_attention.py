@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's two attention kernels at llama3.2-1b's serving shapes.
 
-    python3 time_attention.py [--src DIR] [--decode-d256]
+    python3 time_attention.py [--src DIR] [--decode-d256 | --bwd]
 
 Times ``flash_attention`` (q (8,256,32,64), causal) and ``decode_attention``
 (q (8,32,64), cache (8,1024,8,64), lengths 257-287) in bf16 from the
@@ -22,6 +22,14 @@ each reading the same kv head. "one block" (H = 4) keeps each block's work
 and drops 3 of the 4 blocks; "gqa" (H = 16, KVH = 4) keeps the grid and each
 block's work and gives every block a kv head of its own, 4x the distinct
 bytes.
+
+With ``--bwd`` it times ``flash_attention_bwd`` instead, the backward kernel
+alone from the forward kernel's ``out`` and ``lse``, at llama3.2-1b's
+training shape (q (8,256,32,64), k/v (8,256,8,64), causal) and the MQA case
+(q (1,200,8,256), k/v (1,200,1,256), causal), bf16 and fp32, warm and with
+L2 flushed, and each of its kernels' device time (``chip_smoke.bwd_kernel_ms``,
+torch.profiler), after holding it against this checkout's plain backward
+(``kernels/flash_vjp.py``) at ``chip_smoke.BWD_TOL``.
 """
 from __future__ import annotations
 
@@ -40,8 +48,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", type=Path, default=ROOT / "src",
                         help="the directory that holds the repro_torch package to time")
-    parser.add_argument("--decode-d256", action="store_true",
-                        help="time decode at recurrentgemma-9b's shape and its controls")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--decode-d256", action="store_true",
+                      help="time decode at recurrentgemma-9b's shape and its controls")
+    mode.add_argument("--bwd", action="store_true",
+                      help="time the flash backward at the training shape and the MQA case")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_attention: no CUDA device", file=sys.stderr)
@@ -59,7 +70,7 @@ def main() -> int:
     sys.path.insert(1, str(ROOT))
     import chip_smoke
 
-    ref = _plain_versions()
+    ref = _plain_versions("ref")
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     batch, prompt, new, cache, h, kvh, d = 8, 256, 32, 1024, 32, 8, 64
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -71,6 +82,10 @@ def main() -> int:
     out = {"src": str(src)}
     if args.decode_d256:
         out["decode_attention_d256"] = _decode_d256(chip_smoke, ref, dec_mod, randn, flush)
+        print(json.dumps(out | {"card": _card()}))
+        return 0
+    if args.bwd:
+        out["flash_attention_bwd"] = _bwd(chip_smoke, flash_mod, gen, flush)
         print(json.dumps(out | {"card": _card()}))
         return 0
 
@@ -118,19 +133,50 @@ def _decode_d256(chip_smoke, ref, dec_mod, randn, flush) -> dict:
     return res
 
 
+def _bwd(chip_smoke, flash_mod, gen, flush) -> list:
+    """flash_attention_bwd at chip_smoke.BWD_SPLIT_CASES in bf16 and fp32."""
+    vjp = _plain_versions("flash_vjp")
+    dev = flush.device
+    rows = []
+    for case in chip_smoke.BWD_SPLIT_CASES:
+        b, sq, skv, h, kvh, d, causal, window, softcap, q_offset = case
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                          for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d),
+                                    (b, sq, h, d)))
+            o, lse = flash_mod.flash_attention_fwd(q, k, v, sm_scale=None, **kw)
+            kernel = lambda: flash_mod.flash_attention_bwd(q, k, v, o, lse, g, sm_scale=None,
+                                                           **kw)
+            po, plse = vjp.flash_fwd(q, k, v, scale=d ** -0.5, chunk=min(512, skv), **kw)
+            want = vjp.flash_bwd(q, k, v, po, plse, g, scale=d ** -0.5, chunk=min(512, skv),
+                                 **kw)
+            got = kernel()
+            err = max((chip_smoke.max_err if dtype == torch.float32 else chip_smoke.rel_norm)(a, w)
+                      for a, w in zip(got, want))
+            if not err < chip_smoke.BWD_TOL[dtype]:
+                raise SystemExit(f"time_attention: flash_attention_bwd {case} {dtype} err {err}")
+            rows.append(dict(case=list(case), dtype=str(dtype)[6:], grad_err=err,
+                             ms=chip_smoke.time_ms(kernel),
+                             ms_cold_l2=chip_smoke.time_ms(kernel, flush=flush),
+                             **chip_smoke.bwd_kernel_ms(kernel)))
+    return rows
+
+
 def _card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return smi.stdout.strip()
 
 
-def _plain_versions():
-    """This checkout's ``repro_torch.kernels.ref``, loaded by path: the package
-    name is taken by the kernels under test."""
+def _plain_versions(name: str):
+    """This checkout's ``repro_torch.kernels.<name>`` (``ref`` or
+    ``flash_vjp``), loaded by path: the package name is taken by the kernels
+    under test."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "_plain_ref", ROOT / "src" / "repro_torch" / "kernels" / "ref.py")
+        f"_plain_{name}", ROOT / "src" / "repro_torch" / "kernels" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
