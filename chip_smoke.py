@@ -25,7 +25,13 @@ of ``kernels/flash_vjp.py`` case by case and at llama3.2-1b's training
 shape; ``[train-hold]`` one fp32 train step of llama3.2-1b at full width
 through the kernels against ``impl="ref"``, then bf16 by distance from fp32;
 ``[train]`` ``train_loop`` at full width (10 steps: step ms, tokens/s, peak
-memory, launches held exactly, one step profiled); ``[train-arch]`` every
+memory, launches held exactly, one step profiled); ``[mesh-train]`` the same
+run through ``train_loop(mesh=make_host_mesh())`` (a world of one rank on
+NCCL, parameters and batches DTensors) against ``[train]``;
+``[mesh-shards]`` each rank's calls of both flash kernels under a 4-wide
+and a 16-wide "model" dim, in turn, against the unsharded call, and
+qwen2-moe-a2.7b's expert-parallel layer at full width over 4 and 16 ranks;
+``[train-arch]`` every
 arch at smoke width against the same steps on the host CPU (a second process,
 ``--cpu-train-reference PATH``); ``[train-resume]`` a crash at step 17 and a
 resume bit-equal to an uninterrupted run. Then
@@ -41,7 +47,8 @@ built on the card:
   work;
 - ``[compare]``: ``compare_techniques`` ranking the paper's six techniques
   over two fleets on its default batched engine (fd held against the hour
-  loop), each writing a run record; ``[obs]``: an fd day with its taps off
+  loop; ga, ddpg, ppo and gt-drl against the CPU process, ``[compare-cpu]``), each
+  writing a run record; ``[obs]``: an fd day with its taps off
   and on (bit for bit), the batched stress day's taps, a tapped gt-drl
   half-update under CUDA's sync debug mode, and the scoreboard rendered from
   the records; ``[sched-profile]``: one fd hour under the profiler;
@@ -93,6 +100,8 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import flash_vjp  # noqa: E402
+from repro_torch.kernels.ops import kv_heads_of_shard  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.configs.base import ATTN  # noqa: E402
 from repro_torch.data.tokens import make_batch  # noqa: E402
 from repro_torch.launch.serve import Fleet, ModelServer, Request  # noqa: E402
@@ -294,6 +303,17 @@ RESUME_KW = dict(arch="llama3.2-1b", smoke=True, batch=2, seq=32, lr=1e-3, seed=
                  save_every=10, log_every=1000)
 RESUME_STEPS, RESUME_FAIL_AT = 30, 17
 
+# [mesh-shards]: the calls a 4-wide "model" dim makes of the flash kernels at
+# llama3.2-1b's training shape, each rank's against the unsharded call (fp32:
+# out and dq at the forward's 2e-5, dk and dv summed in rank order at the
+# backward's 1e-4, each reported bit-equal or not; bf16 by its distance from
+# fp32: within MESH_BF16_FACTOR of the unsharded bf16 call's); the GQA case at a
+# 16-wide dim (2 q heads a rank, half a kv head's group); qwen2-moe-a2.7b's
+# expert-parallel layer at full width (60 experts, fp32, 2 x 256 tokens) at
+# 4 ranks against moe_apply and at 16 (padded to 64) against the CPU process
+MESH_M, MESH_GQA_M, MESH_OUT_TOL, MESH_BF16_FACTOR = 4, 16, 2e-5, 2.0
+EP_ARCH, EP_SHAPE, EP_SIZES, EP_RTOL = "qwen2-moe-a2.7b", (2, 256), (4, 16), 1e-5
+
 # llama3.2-1b serving: batch 8, 256-token prompts, 32 new tokens, cache 1024
 ARCH, BATCH, PROMPT, MAX_NEW, CACHE = "llama3.2-1b", 8, 256, 32, 1024
 # first-step logits, kernel path vs impl="ref" on the card. fp32: the kernels
@@ -357,6 +377,11 @@ STACKED_ROWS = 4  # stress-suite rows under a stacked random trace a row
 # the host, the same in both processes, so only float32 order differs; held
 # as fd is (cost SCHED_OBJECTIVE_RTOL, others SCHED_OTHER_RTOL)
 BATCHED_STOCHASTIC = ("ga", "ddpg", "ppo")
+# [compare-cpu]: [compare]'s batched rows of the stochastic techniques, the
+# card's mean daily cost against the CPU process's from the same host draws:
+# at the rtol GA's batched totals hold, gt-drl at its own day's
+COMPARE_HELD = {**{t: SCHED_OBJECTIVE_RTOL for t in BATCHED_STOCHASTIC},
+                "gt-drl": GTDRL_COST_RTOL}
 # run_sweep.py --quick's grid over a priced D = 16 fleet, routed fd
 SWEEP_GRID = {"wan_degradation": (1.0, 3.0),
               "origin_shift": tuple({"weight": w, "toward": (0,)} for w in (0.0, 0.8))}
@@ -691,6 +716,7 @@ def main() -> int:
     del flush
     kernels_at_new_shapes(randn, records)
     kernel_bwd_phase(randn, records)
+    mesh_shards_phase(randn)
 
     # -- 4. serving: the main path ----------------------------------------
     t0 = time.perf_counter()
@@ -1287,6 +1313,10 @@ def cpu_reference(path: Path) -> int:
     out["scenario"] = scenario_runs(torch.device("cpu"))
     out["fault_plans"] = {f"{routed}|{policy}": planned_fault_day(routed, policy)
                           for routed, policy in FAULT_CASES}
+    envs = compare_envs(torch.device("cpu"))
+    out["compare"] = {t: compare_techniques(envs, (t,), "cost_sla",
+                                            hours=COMPARE_HOURS)[t]["mean"]
+                      for t in COMPARE_HELD}
     out["seconds"] = time.perf_counter() - T_START
     path.write_text(json.dumps(out))
     return 0
@@ -1476,12 +1506,17 @@ def obs_phase(dev: torch.device) -> None:
         fail(f"obs records: {len(recs)} records ranked {ranked}")
 
 
-def compare_phase(dev: torch.device) -> None:
+def compare_envs(device) -> list:
+    return [priced_env(16, device, seed) for seed in (0, 1)]
+
+
+def compare_phase(dev: torch.device) -> dict:
     """The paper's table on the card: every technique over two priced D = 16
     fleets on the default (batched) engine, ranked by the day's cost, each
     technique's run record written to RECORDS; fd's mean held against the
-    hour loop's."""
-    envs = [priced_env(16, dev, seed) for seed in (0, 1)]
+    hour loop's. Returns the means, which [compare-cpu] holds against the
+    CPU process's."""
+    envs = compare_envs(dev)
     means = {}
     RECORDS.unlink(missing_ok=True)
     for t in schedulers.TECHNIQUES:
@@ -1505,6 +1540,19 @@ def compare_phase(dev: torch.device) -> None:
               hours=COMPARE_HOURS, metric="cost_usd", mean=f"{r['mean']:.8g}",
               stderr=f"{r['stderr']:.4g}", ms=f"{ms:.1f}", **fields)
     phase("compare-rank", order=",".join(sorted(means, key=means.get)))
+    return means
+
+
+def compare_hold_phase(card: dict, cpu: dict) -> None:
+    """[compare-cpu]: the batched rows of COMPARE_HELD, the card's mean daily
+    cost against the CPU process's from the same host draws."""
+    for t, tol in COMPARE_HELD.items():
+        rel = abs(card[t] - cpu[t]) / abs(cpu[t])
+        phase("compare-cpu", technique=t, engine="batched", envs=2, num_dcs=16,
+              hours=COMPARE_HOURS, mean=f"{card[t]:.8g}", cpu_mean=f"{cpu[t]:.8g}",
+              rel_diff=f"{rel:.3g}", tol=tol)
+        if not rel <= tol:
+            fail(f"compare {t}: card mean {card[t]} against the CPU's {cpu[t]}")
 
 
 def sched_phases(dev: torch.device) -> None:
@@ -1541,7 +1589,7 @@ def _sched_phases(dev: torch.device, child, ref_path: Path) -> None:
 
     gtdrl_step_phase(dev)
     card = {case: traced_day(sched_spec(case), priced_env(case[1], dev)) for case in SCHED_CASES}
-    compare_phase(dev)
+    compare_means = compare_phase(dev)
     obs_phase(dev)
     # where the time of one fd hour goes on the card (D = 16, routed)
     spec = ExperimentSpec(technique="fd", objective="cost_sla", routed=True, hours=1)
@@ -1557,6 +1605,7 @@ def _sched_phases(dev: torch.device, child, ref_path: Path) -> None:
     ref = json.loads(ref_path.read_text())
     phase("sched-cpu-reference", cases=len(SCHED_CASES) + len(ref["scenario"]),
           seconds=f"{ref['seconds']:.1f}")
+    compare_hold_phase(compare_means, ref["compare"])
     for case in SCHED_CASES:
         technique, d, routed, hours = case
         (got, card_ms, infos), want = card[case], ref["|".join(map(str, case))]
@@ -2144,11 +2193,12 @@ def train_hold_phase(dev: torch.device) -> None:
         fail(f"train-hold bf16: loss {kl} (plain {rl}), grads {kg} (plain {rg})")
 
 
-def train_phase(dev: torch.device, records: dict) -> None:
+def train_phase(dev: torch.device, records: dict) -> dict:
     """[train]: the trainer at full width, bf16, through both flash kernels,
     launches held exactly (remat "full" runs each attention forward twice a
     step); step ms (median of steps 2-10), tokens/s, peak memory; then one
-    step under the profiler, and its forward and backward by CUDA events."""
+    step under the profiler, and its forward and backward by CUDA events.
+    Returns the losses, step ms and launches, which [mesh-train] is held to."""
     cfg = get_config(ARCH)
     n_attn = attn_layers(cfg)
     torch.cuda.synchronize()
@@ -2203,6 +2253,7 @@ def train_phase(dev: torch.device, records: dict) -> None:
     phase("train-profile", what="forward and backward by CUDA events (device time between "
           "markers)", forward_ms=f"{marks[0].elapsed_time(marks[1]):.3f}",
           backward_ms=f"{marks[1].elapsed_time(marks[2]):.3f}")
+    return {"losses": losses, "step_ms": step_ms, "launches": launches}
 
 
 def train_arch_losses(device) -> dict:
@@ -2290,20 +2341,237 @@ def train_resume_phase(dev: torch.device) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the mesh: the (1, 1) host mesh on the card, and the calls a wider mesh's
+# ranks make of the kernels, each rank in turn
+# ---------------------------------------------------------------------------
+
+def mesh_train_phase(dev: torch.device, records: dict, plain_run: dict) -> None:
+    """[mesh-train]: [train]'s run through ``train_loop(mesh=make_host_mesh())``
+    (a world of one rank on NCCL, the parameters, moments and batches
+    DTensors, the kernels called on each shard's local tensors): launches held
+    exactly as [train]'s, losses against [train]'s (bit-equal, or the largest
+    relative gap), step ms beside [train]'s, then one step profiled."""
+    import torch.distributed as dist
+
+    cfg = get_config(ARCH)
+    mesh = make_host_mesh(device=dev)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_mod.KERNEL.launches = flash_mod.BWD_KERNEL.launches = dec_mod.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        res = train_loop(arch=ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                         seq=TRAIN_SEQ, device=dev, log_every=TRAIN_STEPS, mesh=mesh)
+        wall_s = time.perf_counter() - t0
+        launches = {"flash_attention": flash_mod.KERNEL.launches,
+                    "flash_attention_bwd": flash_mod.BWD_KERNEL.launches,
+                    "decode_attention": dec_mod.KERNEL.launches}
+        if launches != plain_run["launches"]:
+            fail(f"mesh-train launches {launches}, [train]'s {plain_run['launches']}")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            records[name]["launches_by_path"][f"mesh-train {ARCH}"] = launches[name]
+        losses, want = res["losses"], plain_run["losses"]
+        gap = max(abs(a / w - 1) for a, w in zip(losses, want))
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            fail(f"mesh-train losses {losses}")
+        step_ms = float(np.median(res["step_s"][1:])) * 1e3
+        phase("mesh-train", arch=ARCH, mesh="(data 1, model 1)", backend=dist.get_backend(),
+              world=dist.get_world_size(), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              steps=TRAIN_STEPS, step_ms_median_2_10=f"{step_ms:.3f}",
+              train_step_ms=f"{plain_run['step_ms']:.3f}",
+              ratio_to_train=f"{step_ms / plain_run['step_ms']:.3f}",
+              tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f}",
+              peak_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}",
+              wall_s=f"{wall_s:.1f}", launches=launches,
+              losses_bit_equal_to_train=losses == want, max_rel_loss_gap=f"{gap:.3g}",
+              losses=[f"{x:.6f}" for x in losses])
+        if gap > TRAIN_LOSS_RTOL:
+            fail(f"mesh-train losses {losses} against [train]'s {want}")
+        state = res["state"]
+        del res
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+        batch = make_batch(cfg, seed=1, step=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           device=dev)
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.launch.train import shard_batch
+
+        def one_step():
+            with shd.use_mesh(mesh):
+                return step(state, shard_batch(batch, mesh))
+
+        profile_phase("mesh-train-profile", one_step, what="one train step on the (1, 1) mesh",
+                      arch=ARCH)
+        del state
+    finally:
+        dist.destroy_process_group()
+
+
+def attn_call(q, k, v, g, q_offset: int = 0):
+    """(out, dq, dk, dv) of one causal flash call through both kernels, on
+    contiguous copies of a shard's slices, as ``kernels/ops.py`` makes them."""
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    out = flash_mod.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+
+def head_shard(q, k, v, g, rank: int, m: int):
+    """Rank ``rank`` of ``m``'s tensors under the head split, as
+    ``kernels/ops.py`` gives them: its q heads, and its kv heads (sharded
+    with q where they divide, else gathered by ``kv_heads_of_shard``)."""
+    h, kvh = q.shape[2], k.shape[2]
+    hl = h // m
+    if kvh % m == 0:
+        sel = list(range(rank * kvh // m, (rank + 1) * kvh // m))
+    else:
+        sel = kv_heads_of_shard(h, kvh, rank, m)
+    qs = slice(rank * hl, (rank + 1) * hl)
+    return q[:, :, qs], k[:, :, sel], v[:, :, sel], g[:, :, qs], qs, sel
+
+
+def sharded_grads(q, k, v, g, m: int, split: str):
+    """(out, dq, dk, dv) assembled from each rank's call in rank order: the
+    rows or heads of out and dq placed, a shard's dk and dv added into the
+    heads it read (a partial sum where ranks share a kv head)."""
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    dk32, dv32 = (torch.zeros(k.shape, dtype=torch.float32, device=k.device) for _ in "kv")
+    for r in range(m):
+        if split == "heads":
+            ql, kl, vl, gl, qs, sel = head_shard(q, k, v, g, r, m)
+            o, a, b, c = attn_call(ql, kl, vl, gl)
+            out[:, :, qs], dq[:, :, qs] = o, a
+            for j, head in enumerate(sel):
+                dk32[:, :, head] += b[:, :, j].float()
+                dv32[:, :, head] += c[:, :, j].float()
+        else:
+            rows = slice(r * q.shape[1] // m, (r + 1) * q.shape[1] // m)
+            o, a, b, c = attn_call(q[:, rows], k, v, g[:, rows], q_offset=rows.start)
+            out[:, rows], dq[:, rows] = o, a
+            dk32 += b.float()
+            dv32 += c.float()
+    return out, dq, dk32.to(k.dtype), dv32.to(v.dtype)
+
+
+def mesh_shards_phase(randn) -> None:
+    """[mesh-shards]: each rank's kernel calls under a wider "model" dim than
+    the card count, in rank order, against the unsharded call (see MESH_M)."""
+    b, s, _, h, kvh, d = TRAIN_ATTN_CASE[:6]
+    names = ("out", "dq", "dk", "dv")
+    inputs = [randn(b, s, n, d, dtype=torch.float32) for n in (h, kvh, kvh, h)]
+    full32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (t.to(dtype) for t in inputs)
+        full = attn_call(q, k, v, g)
+        for split, m in (("heads", MESH_M), ("seq", MESH_M), ("heads", MESH_GQA_M)):
+            got = sharded_grads(q, k, v, g, m, split)
+            equal = {n: torch.equal(a, w) for n, a, w in zip(names, got, full)}
+            errs = {n: max_err(a, w) for n, a, w in zip(names, got, full)}
+            fields = {}
+            if dtype == torch.float32:
+                full32 = full
+                tol = {"out": MESH_OUT_TOL, "dq": MESH_OUT_TOL,
+                       "dk": BWD_TOL[dtype], "dv": BWD_TOL[dtype]}
+                bad = [n for n in names if not errs[n] <= tol[n]]
+            else:
+                # no further from the fp32 call than MESH_BF16_FACTOR times the
+                # unsharded bf16 call is
+                far = {n: rel_norm(a, w) for n, a, w in zip(names, got, full32)}
+                near = {n: rel_norm(a, w) for n, a, w in zip(names, full, full32)}
+                fields = {"rel_to_fp32": {n: f"{far[n]:.3g}" for n in names},
+                          "unsharded_rel_to_fp32": {n: f"{near[n]:.3g}" for n in names}}
+                tol = f"{MESH_BF16_FACTOR}x the unsharded bf16 call's distance from fp32"
+                bad = [n for n in names if not far[n] <= MESH_BF16_FACTOR * near[n]]
+            shard = ((b, s, s, h // m, len(head_shard(q, k, v, g, 0, m)[5]), d)
+                     if split == "heads" else (b, s // m, s, h, kvh, d))
+            phase("mesh-shards", split=split, m=m, dtype=str(dtype)[6:],
+                  shape=f"q({b},{s},{h},{d}) kv({b},{s},{kvh},{d})",
+                  shard_shape=f"q({shard[0]},{shard[1]},{shard[3]},{d}) "
+                              f"kv({shard[0]},{shard[2]},{shard[4]},{d})",
+                  bit_equal=equal, max_abs_err={n: f"{e:.3g}" for n, e in errs.items()},
+                  bwd_splits={"shard": flash_mod._bwd_plan(*shard, dtype).splits,
+                              "unsharded": flash_mod._bwd_plan(b, s, s, h, kvh, d,
+                                                               dtype).splits},
+                  tol=tol, **fields)
+            if bad:
+                fail(f"mesh-shards {split} m={m} {dtype}: {bad} off ({errs})")
+
+
+def ep_inputs(device):
+    """qwen2-moe-a2.7b's routed experts at full width in fp32 (router and 60
+    experts, no shared experts: the EP body alone), drawn on the CPU from
+    seed 0, and a (2, 256, 2048) input; on ``device``."""
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def draw(*shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(device)
+
+    p = {"router": {"w": draw(d, e, std=d ** -0.5)},
+         "experts": {"w_in": {"w": draw(e, d, f, std=d ** -0.5)},
+                     "w_gate": {"w": draw(e, d, f, std=d ** -0.5)},
+                     "w_out": {"w": draw(e, f, d, std=f ** -0.5)}}}
+    return cfg, p, draw(*EP_SHAPE, d, std=1.0)
+
+
+def ep_path(ref_path: Path) -> Path:
+    """Where the CPU process leaves its 16-rank expert-parallel output."""
+    return ref_path.with_name(ref_path.stem + "_ep16.pt")
+
+
+def ep_sum(p, cfg, x, m: int) -> torch.Tensor:
+    """The expert-parallel layer over ``m`` ranks: each rank's ``ep_shard``,
+    summed in rank order (the all-reduce)."""
+    out = moe_mod.ep_shard(p, cfg, x, 0, m)[0]
+    for r in range(1, m):
+        out = out + moe_mod.ep_shard(p, cfg, x, r, m)[0]
+    return out
+
+
+def ep_shards_phase(dev: torch.device, ref_path: Path, child) -> None:
+    """[mesh-shards], expert parallel: qwen2-moe-a2.7b's layer at full width,
+    the ranks' sum at 4 ranks (60 experts divide: moe_apply's capacity)
+    against moe_apply, and at 16 ranks (padded to 64: a capacity over 64)
+    against the CPU process's same sum."""
+    cfg, p, x = ep_inputs(dev)
+    want = moe_mod.moe_apply(p, cfg, x)[0]
+    got4 = ep_sum(p, cfg, x, EP_SIZES[0])
+    got16 = ep_sum(p, cfg, x, EP_SIZES[1])
+    if child.wait(timeout=900) != 0:
+        fail(f"the CPU training reference process exited {child.returncode}")
+    cpu16 = torch.load(ep_path(ref_path))
+    rel4, rel16 = rel_norm(got4, want), rel_norm(got16.cpu(), cpu16)
+    gap16 = rel_norm(got16, want)
+    e_pad, e_loc, cap = moe_mod.ep_layout(cfg.num_experts, EP_SIZES[1], x.shape[0] * x.shape[1],
+                                          cfg.num_experts_per_tok, 1.25)
+    phase("mesh-shards", split="experts", arch=EP_ARCH, experts=cfg.num_experts,
+          top_k=cfg.num_experts_per_tok, d_model=cfg.d_model, d_ff=cfg.d_ff,
+          tokens=x.shape[0] * x.shape[1], dtype="float32",
+          m4_rel_to_moe_apply=f"{rel4:.3g}", m16_rel_to_cpu=f"{rel16:.3g}",
+          m16_padded_to=e_pad, m16_capacity=cap, m16_rel_to_moe_apply=f"{gap16:.3g}",
+          tol=EP_RTOL)
+    if not (rel4 <= EP_RTOL and rel16 <= EP_RTOL):
+        fail(f"mesh-shards experts: m=4 {rel4} against moe_apply, m=16 {rel16} against the CPU")
+
+
 def train_phases(dev: torch.device, records: dict) -> None:
     """The training path on the card, with the CPU process that [train-arch]
     holds the card against started first, beside the card's work."""
     ref_path = ROOT / "build" / "chip_smoke_cpu_train_reference.json"
     ref_path.parent.mkdir(exist_ok=True)
     ref_path.unlink(missing_ok=True)
+    ep_path(ref_path).unlink(missing_ok=True)
     child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                               "--cpu-train-reference", str(ref_path)],
                              env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     try:
         train_hold_phase(dev)
         torch.cuda.empty_cache()
-        train_phase(dev, records)
+        plain_run = train_phase(dev, records)
         torch.cuda.empty_cache()
+        mesh_train_phase(dev, records, plain_run)
+        torch.cuda.empty_cache()
+        ep_shards_phase(dev, ref_path, child)
         train_arch_phase(dev, child, ref_path)
         train_resume_phase(dev)
     finally:
@@ -2316,6 +2584,8 @@ def cpu_train_reference(path: Path) -> int:
     """[train-arch]'s runs on the host CPU, written to ``path`` as JSON."""
     torch.set_num_threads(2)
     out = train_arch_losses(torch.device("cpu"))
+    cfg, p, x = ep_inputs(torch.device("cpu"))
+    torch.save(ep_sum(p, cfg, x, EP_SIZES[-1]), ep_path(path))
     out["seconds"] = time.perf_counter() - T_START
     path.write_text(json.dumps(out))
     return 0

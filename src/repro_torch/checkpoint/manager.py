@@ -15,7 +15,10 @@ layout:
   * leaves are saved from the host, so a checkpoint written from the card
     restores onto the CPU or another card: restore puts each leaf on the
     device and dtype of its template (a bfloat16 leaf is saved as its bits,
-    int16, since numpy has no bfloat16).
+    int16, since numpy has no bfloat16);
+  * a DTensor leaf is saved whole (``full_tensor``, a collective every rank
+    of its mesh joins) and restored onto its template's mesh and placements,
+    so a checkpoint written over one mesh restores over another, or none.
 
 ``save`` keeps every step (the sweep journal, ``faults/resume.py``, needs
 them all); the trainer calls ``prune`` after each save, which keeps the last
@@ -33,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import full, is_dtensor
 from ..tree import tree_leaves, tree_unflatten
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
@@ -41,7 +45,7 @@ KEEP = 3  # complete steps ``prune`` keeps
 
 def _to_host(x: Any) -> np.ndarray:
     if torch.is_tensor(x):
-        x = x.detach().cpu()
+        x = full(x).detach().cpu()
         return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
@@ -53,7 +57,12 @@ def _like(template: Any, arr: np.ndarray) -> Any:
         t = torch.from_numpy(arr)
         if template.dtype == torch.bfloat16 and t.dtype == torch.int16:
             t = t.view(torch.bfloat16)
-        return t.to(device=template.device, dtype=template.dtype)
+        t = t.to(device=template.device, dtype=template.dtype)
+        if is_dtensor(template):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(t, template.device_mesh, template.placements)
+        return t
     if isinstance(template, np.ndarray):
         return arr.astype(template.dtype, copy=False)
     return arr

@@ -49,8 +49,8 @@ reference's, has no tap of its own; its stateful solver keeps the ambient
 set it was built under. ``record=`` appends a JSONL record
 (``obs.records``).
 
-Sharding the batched engine over several cards raises
-``NotImplementedError`` naming ROADMAP.md A.12; nothing is ignored silently.
+``shard=True`` splits the batched engine's rows over every local card, as
+the reference's ``_sharded_batch`` does over its devices (``_run_batched``).
 """
 from __future__ import annotations
 
@@ -65,6 +65,7 @@ import torch
 from .. import faults as FL
 from .. import obs
 from ..dcsim import env as E
+from ..tree import tree_map
 from . import game
 from . import schedulers as SCH
 from .draws import generator, stack_draws
@@ -267,8 +268,8 @@ def run(
     ``solver_state0`` injects the solver's initial carry (deployed gt-drl
     agents; not on the loop engine); ``solver`` injects a prebuilt
     ``(gen, ctx, peak) -> SolveResult`` closure (loop only). ``shard=True``
-    (batched only) runs the same batched program on the one visible card;
-    several cards raise (ROADMAP.md A.12). ``faults`` (a ``FaultTrace``,
+    (batched only) splits the rows over every local card (one card: the
+    unsharded program). ``faults`` (a ``FaultTrace``,
     or on the batched engine a stacked one, a row each) executes every hour
     against the realized env under ``spec.failover``. ``record`` (True, or
     a JSONL path) appends a spec-keyed run record (``repro_torch.obs.records``;
@@ -389,62 +390,98 @@ def _by_key(keys, stacked: torch.Tensor) -> Dict[str, np.ndarray]:
     return {k: np.ascontiguousarray(host[:, :, j]) for j, k in enumerate(keys)}
 
 
-def _check_shard(env0: E.EnvParams) -> None:
-    """``shard=True`` runs the batched program as it is on one device."""
+def local_devices(env0: E.EnvParams) -> List[torch.device]:
+    """The devices ``shard=True`` splits the rows over: every local card for
+    envs on a card, the envs' own device otherwise."""
     dev = env0.er.device
-    count = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if count > 1:
-        raise NotImplementedError(
-            f"the port does not shard the batched engine over {count} cards: "
-            "ROADMAP.md A.12")
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
-def _run_batched(spec, envs, solver_state0, shard, faults=None):
+def _to(tree, device):
+    return tree_map(lambda x: x.to(device) if torch.is_tensor(x) else x, tree)
+
+
+def _rows(tree, lo: int, hi: int, device):
+    return tree_map(lambda x: x[lo:hi].to(device), tree)
+
+
+def _pad_rows(tree, n: int):
+    """A stacked tree padded to ``n`` rows by repeating its last row."""
+    return tree_map(lambda x: torch.cat([x, x[-1:].expand((n - x.shape[0],) + x.shape[1:])]),
+                    tree)
+
+
+def _run_batched(spec, envs, solver_state0, shard, faults=None, devices=None):
+    """The batched engine: one ``vmap`` a hour over the rows. ``shard=True``
+    splits the rows over ``devices`` (every local card by default), as the
+    reference's ``_sharded_batch``: the rows are padded to a multiple of the
+    device count with copies of the last (its seed's generator drawn anew),
+    each device runs the vmapped hour on its slice, no collective joins them,
+    and the padded rows' metrics are dropped. On one device it is the
+    unsharded program."""
     env_b, env0, n = _rows_of(envs)
     seeds = list(range(n)) if spec.seeds is None else list(spec.seeds)
     if len(seeds) != n:
         raise ValueError(f"{len(seeds)} seeds for {n} scenario-days")
-    if shard:
-        _check_shard(env0)
     stacked = _trace_stacked(faults)  # per-row traces vs one shared trace
     if stacked and int(faults.avail_mult.shape[0]) != n:
         raise ValueError(f"stacked FaultTrace has {int(faults.avail_mult.shape[0])} rows "
                          f"for {n} scenario-days")
+    devices = ([env0.er.device] if not shard else
+               [torch.device(d) for d in (devices or local_devices(env0))])
 
     # deploy once, on the first seed's initial-state generator; every row
     # then draws from its own seed's per-hour generator
     _, state0 = _day_inputs(env0, spec.technique, spec.objective, seeds[0], spec.pretrain,
                             spec.cfg, solver_state0, spec.routed)
     gens = [_generators(s)[1] for s in seeds]
+    pad = (-n) % len(devices)
+    if pad:
+        env_b = E.pad_env_batch(env_b, n + pad)
+        gens += [_generators(seeds[-1])[1] for _ in range(pad)]
+        faults = _pad_rows(faults, n + pad) if stacked else faults
+    per = (n + pad) // len(devices)
     t = game.get_technique(spec.technique)
     cfg = t.resolve_cfg(spec.cfg)
     draw, compute = t.split()
-    dev = env0.er.device
-    peak = torch.zeros((n, E.num_dcs(env0)), dtype=env0.er.dtype, device=dev)
-    state, state_dim = state0, None  # the deployed state is shared until hour 0
-    keys, rows = [], []
+    shards = []  # (device, env rows, peak, state, state's vmap dim, generators, trace, rows)
+    for i, dev in enumerate(devices):
+        lo, hi = i * per, (i + 1) * per
+        shards.append([dev, _rows(env_b, lo, hi, dev),
+                       torch.zeros((per, E.num_dcs(env0)), dtype=env0.er.dtype, device=dev),
+                       _to(state0, dev), None, gens[lo:hi],
+                       (_rows(faults, lo, hi, dev) if stacked else _to(faults, dev)), []])
+    keys = []
     with _dispatch(spec, shard, faults):
         for tau in range(spec.hours):
-            draws = None
-            if draw is not None:
-                ctx0 = GameContext(env=env0, tau=tau, objective=spec.objective,
-                                   routed=spec.routed)
-                draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in gens], dev)
+            for sh in shards:
+                dev, env_s, peak, state, state_dim, sgens, trace, rows = sh
+                draws = None
+                if draw is not None:
+                    ctx0 = GameContext(env=env0, tau=tau, objective=spec.objective,
+                                       routed=spec.routed)
+                    draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in sgens], dev)
 
-            def hour(env, peak, state, draws, trace, tau=tau):
-                ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
-                state, res = compute(draws, state, ctx, peak, cfg)
-                peak, m = _execute(spec, ctx, res.fractions, peak, trace)
-                keys[:] = list(m)
-                return peak, state, torch.stack(list(m.values()))
+                def hour(env, peak, state, draws, trace, tau=tau):
+                    ctx = GameContext(env=env, tau=tau, objective=spec.objective,
+                                      routed=spec.routed)
+                    state, res = compute(draws, state, ctx, peak, cfg)
+                    peak, m = _execute(spec, ctx, res.fractions, peak, trace)
+                    keys[:] = list(m)
+                    return peak, state, torch.stack(list(m.values()))
 
-            # the rows' live taps leave the vmap as outputs, a row each
-            in_dims = (0, 0, state_dim, None if draws is None else 0, 0 if stacked else None)
-            peak, state, row = obs.tap_mod.vmap(hour, in_dims=in_dims)(env_b, peak, state,
-                                                                       draws, faults)
-            state_dim = 0
-            rows.append(row)
-        out = _by_key(keys, torch.stack(rows, dim=1))  # (n, hours) each
+                # the rows' live taps leave the vmap as outputs, a row each
+                in_dims = (0, 0, state_dim, None if draws is None else 0,
+                           0 if stacked else None)
+                sh[2], sh[3], row = obs.tap_mod.vmap(hour, in_dims=in_dims)(
+                    env_s, peak, state, draws, trace)
+                sh[4] = 0  # the deployed state is shared until hour 0
+                rows.append(row)
+        metrics = [torch.stack(sh[7], dim=1) for sh in shards]  # (per, hours, K) each
+        metrics = metrics[0] if len(metrics) == 1 else torch.cat([m.cpu() for m in metrics])
+        out = _by_key(keys, metrics[:n])  # (n, hours) each
     totals = {k: out[k].sum(axis=1) for k in _totals_keys(out)}
     return {"totals": totals, "per_epoch": out, "technique": spec.technique,
             "objective": spec.objective, "seeds": seeds}

@@ -11,6 +11,11 @@
 
 The signatures are those of ``repro.kernels.ops`` less ``block_q`` /
 ``block_k``: the CUDA kernels' tiles are compile-time constants.
+
+Under a mesh (``distributed/sharding.py``) ``attention`` takes DTensors and
+calls the kernel once per shard on its local tensors (:func:`_per_shard`):
+the kernels are autograd Functions with no DTensor sharding rule, and their
+own code does not change.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from . import ref as _ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
@@ -46,8 +52,72 @@ def attention(
     """Batched multi-head (GQA) attention, (B, S, H, D) layout."""
     _check_impl(impl)
     fn = {"auto": _flash_kernel, "chunked": _chunked, "ref": _ref.attention_ref}[impl]
-    return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
-              softcap=softcap, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale, softcap=softcap)
+    if is_dtensor(q):
+        return _per_shard(fn, q, k, v, q_offset=q_offset, **kw)
+    return fn(q, k, v, q_offset=q_offset, **kw)
+
+
+def kv_heads_of_shard(heads: int, kv_heads: int, rank: int, size: int):
+    """The kv heads that the q heads ``[rank H/m, (rank + 1) H/m)`` read, as
+    the list to gather from the whole k and v so that the kernel's GQA map
+    ``h_local // (H_local / KVH_local)`` pairs each local q head with its own:
+    one entry per local group when the shard's heads split evenly into
+    groups, else one per q head."""
+    local = heads // size
+    group = heads // kv_heads
+    idx = [(rank * local + h) // group for h in range(local)]
+    uniq = sorted(set(idx))
+    per = local // len(uniq)
+    if local % len(uniq) == 0 and idx == [u for u in uniq for _ in range(per)]:
+        return uniq
+    return idx
+
+
+def _per_shard(fn, q, k, v, *, q_offset: int, **kw):
+    """Attention of DTensors q (B, S, H, D), k and v (B, Skv, KVH, D), the
+    kernel called on each shard's local tensors.
+
+    q's placement on "model" picks the split: ``Shard(2)`` (heads: k and v
+    shard with q where their heads divide, else each shard gathers the kv
+    heads its q heads read), ``Shard(1)`` (query rows: k and v whole, the
+    shard's rows offset by its start) or ``Replicate`` (no split). On the
+    batch dims k and v follow q. Where a shard reads only part of a whole k
+    or v, its gradient there is a partial sum, reduced over "model".
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    split = None if mi is None else q.placements[mi]
+    size = 1 if mi is None else mesh.size(mi)
+    rank = 0 if mi is None else mesh.get_local_rank("model")
+    heads, kv_heads = q.shape[2], k.shape[2]
+    by_heads = split == Shard(2)
+    if isinstance(split, Shard) and split.dim not in (1, 2):
+        raise ValueError(f"attention: q sharded on dim {split.dim} over 'model'")
+    kv_place, grad_place = list(q.placements), list(q.placements)
+    if mi is not None:
+        kv_place[mi] = Shard(2) if by_heads and kv_heads % size == 0 else Replicate()
+        # a shard that reads part of a whole k or v holds a partial gradient
+        partial = isinstance(split, Shard) and kv_place[mi] == Replicate()
+        grad_place[mi] = Partial() if partial else kv_place[mi]
+
+    def local(t):
+        t = t.redistribute(mesh, kv_place) if tuple(t.placements) != tuple(kv_place) else t
+        return t.to_local(grad_placements=grad_place)
+
+    ql, kl, vl = q.to_local(), local(k), local(v)
+    if by_heads and kv_place[mi] == Replicate():
+        idx = torch.tensor(kv_heads_of_shard(heads, kv_heads, rank, size), device=kl.device)
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    elif split == Shard(1):
+        q_offset = q_offset + rank * ql.shape[1]
+    # the kernels take contiguous tensors: a shard's slice of heads is not
+    ql, kl, vl = (t.contiguous() for t in (ql, kl, vl))
+    o = fn(ql, kl, vl, q_offset=q_offset, **kw).contiguous()
+    return DTensor.from_local(o, mesh, q.placements, run_check=False)
 
 
 def decode_attention(

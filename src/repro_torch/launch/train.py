@@ -14,6 +14,20 @@ On the CPU, at smoke width:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke \\
         --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/run1 --device cpu
 Resume after interruption is automatic (same command).
+
+Over a mesh (``launch/mesh.py``): ``train_loop(mesh=...)`` places the
+parameters and moments by the partition rules (``distributed/sharding.py``,
+FSDP off, as the reference's launcher), each batch by ``batch_spec``, and
+runs the step under ``use_mesh``; every rank starts the same process group
+and calls it alike, and every rank's loss is the same. On the CPU, four gloo
+ranks of a (2, 2) mesh under ``torch.multiprocessing.spawn``::
+
+    def worker(rank):
+        torch.distributed.init_process_group(
+            "gloo", init_method="tcp://127.0.0.1:29500", rank=rank, world_size=4)
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        train_loop(arch="qwen2-moe-a2.7b", steps=3, batch=4, seq=32, mesh=mesh,
+                   device="cpu")
 """
 from __future__ import annotations
 
@@ -25,10 +39,12 @@ from typing import Any, Dict, Optional
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get_config
 from ..data.tokens import TokenPipeline
+from ..distributed import sharding as shd
 from ..distributed.fault_tolerance import HeartbeatMonitor
 from ..models.model import resolve_device
-from ..optim.adamw import AdamWConfig
+from ..optim.adamw import AdamWConfig, OptState
 from ..train.step import TrainState, init_train_state, make_train_step
+from ..tree import tree_map
 
 
 def build(arch: str, smoke: bool, lr: float, quantize_moments: bool):
@@ -37,6 +53,31 @@ def build(arch: str, smoke: bool, lr: float, quantize_moments: bool):
         cfg = cfg.smoke()
     opt_cfg = AdamWConfig(lr=lr, quantize_moments=quantize_moments)
     return cfg, opt_cfg
+
+
+def shard_state(state: TrainState, mesh, cfg) -> TrainState:
+    """The parameters and both moments of ``state`` (the same full tensors on
+    every rank) distributed by the partition rules; ``step`` stays whole."""
+    def put(tree):
+        return shd.apply_shardings(tree, mesh, cfg=cfg)
+
+    return TrainState(put(state.params), OptState(state.opt.step, put(state.opt.mu),
+                                                  put(state.opt.nu)))
+
+
+def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Each input's leading batch dim over as much of the batch axes as divides."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return {k: distribute_tensor(
+        x, mesh, shd.to_placements(shd.batch_spec(mesh, x.shape[0], x.ndim - 1), mesh))
+        for k, x in batch.items()}
+
+
+def _is_writer() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def train_loop(
@@ -58,11 +99,11 @@ def train_loop(
     """Train ``steps`` steps (from the latest checkpoint in ``ckpt_dir``, if
     any). Returns the final state, each step's loss and host seconds (the
     step ends when its loss is read back), and the stragglers."""
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh of cards: ROADMAP.md A.12")
     device = resolve_device(device)
     cfg, opt_cfg = build(arch, smoke, lr, quantize_moments=False)
     state = init_train_state(cfg, opt_cfg, seed=seed, device=device)
+    if mesh is not None:
+        state = shard_state(state, mesh, cfg)
     pipe = TokenPipeline(cfg, seed=seed + 1, batch=batch, seq=seq, device=device)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
@@ -78,24 +119,37 @@ def train_loop(
     step_fn = make_train_step(cfg, opt_cfg)
     monitor = HeartbeatMonitor(num_workers=1)
     losses, step_s = [], []
-    for step in range(start_step, steps):
-        if fail_at is not None and step == fail_at:
-            raise RuntimeError(f"simulated failure at step {step}")
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, pipe.next())
-        loss = float(metrics["loss"])  # waits for the step
-        step_s.append(time.perf_counter() - t0)
-        monitor.record(0, step_s[-1])
-        losses.append(loss)
-        if step % log_every == 0:
-            print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} ({step_s[-1]:.2f}s)")
-        if mgr is not None and (step + 1) % save_every == 0:
-            mgr.save(step + 1, {"params": state.params, "opt": state.opt},
-                     extra={"data": pipe.state()})
-            mgr.prune()
+    with shd.use_mesh(mesh):
+        for step in range(start_step, steps):
+            if fail_at is not None and step == fail_at:
+                raise RuntimeError(f"simulated failure at step {step}")
+            t0 = time.perf_counter()
+            batch = pipe.next()
+            state, metrics = step_fn(state, batch if mesh is None else shard_batch(batch, mesh))
+            loss = float(metrics["loss"])  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            monitor.record(0, step_s[-1])
+            losses.append(loss)
+            if step % log_every == 0 and _is_writer():
+                print(f"[train] step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} ({step_s[-1]:.2f}s)")
+            if mgr is not None and (step + 1) % save_every == 0:
+                _save(mgr, step + 1, state, pipe, mesh)
     return {"state": state, "losses": losses, "step_s": step_s, "final_step": steps,
             "stragglers": monitor.stragglers()}
+
+
+def _save(mgr: CheckpointManager, step: int, state: TrainState, pipe, mesh) -> None:
+    """Save a step's state whole: over a mesh every rank gathers its leaves
+    (a collective) and rank 0 writes, so that any mesh restores it."""
+    full = {"params": tree_map(shd.full, state.params), "opt": tree_map(shd.full, state.opt)}
+    if _is_writer():
+        mgr.save(step, full, extra={"data": pipe.state()})
+        mgr.prune()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def main():

@@ -13,6 +13,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import constrain
 from ..kernels import ops
 from .layers import DTYPES, Params, apply_mrope, apply_rope, dense, dense_init
 
@@ -53,9 +54,21 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def attn_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                causal: bool = True, window: int = 0, impl: str = "auto") -> torch.Tensor:
-    """Full-sequence self attention (training / prefill)."""
+    """Full-sequence self attention (training / prefill). Under a mesh, q is
+    sharded by heads over "model" (k and v with it where their heads divide),
+    or, under ``act_shard="seq"``, by query rows with k and v whole; each
+    shard calls the kernel on its own part (``kernels/ops.py``)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.act_shard == "seq":
+        # sequence parallelism: q keeps its span of query rows, k and v are
+        # gathered across "model" (small under GQA)
+        q = constrain(q, ("pod", "data"), "model", None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
+    else:
+        q = constrain(q, ("pod", "data"), None, "model", None)
+        k = constrain(k, ("pod", "data"), None, "model", None)
     o = ops.attention(q, k, v, causal=causal, window=window,
                       softcap=cfg.attn_logit_softcap, impl=impl)
     return dense(p["wo"], o.reshape(b, s, cfg.q_dim()))

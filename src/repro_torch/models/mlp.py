@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.sharding import constrain
 from .layers import DTYPES, GATED_ACTS, Params, activation, dense, dense_init
 
 
@@ -29,4 +30,9 @@ def mlp_apply(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
     h = dense(p["w_in"], x)
     h = act(dense(p["w_gate"], x)) * h if "w_gate" in p else act(h)
+    if cfg.act_shard == "seq" and h.ndim == 3:
+        # sequence parallelism: the FFN is token-local, tokens stay sharded
+        h = constrain(h, ("pod", "data"), "model", None)
+    else:
+        h = constrain(h, ("pod", "data"), None, "model")
     return dense(p["w_out"], h)

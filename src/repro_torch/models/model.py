@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain_batch
 from . import encdec, transformer
 from .layers import DTYPES, Params, apply_norm, embed, embed_init, norm_init, unembed
 
@@ -69,7 +70,8 @@ def _embed_inputs(p: Params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.T
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(x.dtype)
         x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
-    return x * (cfg.d_model ** 0.5) if cfg.family == "hybrid" else x  # gemma scaling
+    x = x * (cfg.d_model ** 0.5) if cfg.family == "hybrid" else x  # gemma scaling
+    return constrain_batch(x)
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,17 @@ reference:
 * ``einsum``: GShard's one-hot dispatch and combine tensors.
 
 The expert products are ``torch.bmm`` (plain matrix products, which the
-reference leaves to XLA). ``moe_apply_ep`` is the reference's un-meshed
-fallback: the port has no mesh (ROADMAP A.12).
+reference leaves to XLA).
+
+``moe_apply_ep`` is the reference's expert-parallel form under a mesh with a
+"model" dim (its ``shard_map`` body): tokens stay sharded over the batch
+axes and whole over "model"; the experts are padded to ``e_pad``, a multiple
+of the "model" size (pad experts are unroutable); each "model" rank routes
+its tokens, runs only its ``e_pad / m`` experts (:func:`ep_shard`, a plain
+function of the rank and the size) and one all-reduce over "model" sums the
+ranks' outputs. The capacity is sized over ``e_pad``, as the reference's is,
+so where E does not divide the "model" size more pairs are dropped than in
+``moe_apply`` (ROADMAP C.7). Un-meshed it is ``moe_apply``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
 from .layers import DTYPES, Params, activation, dense_init
 from .mlp import mlp_apply, mlp_init
 
@@ -82,7 +92,8 @@ def _expert_ffn(experts: Params, cfg, h_in: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
     up = torch.bmm(h_in, experts["w_in"]["w"])
     gate = torch.bmm(h_in, experts["w_gate"]["w"])
-    return torch.bmm(act(gate) * up, experts["w_out"]["w"])
+    h = shd.constrain(act(gate) * up, "model", None, None)
+    return torch.bmm(h, experts["w_out"]["w"])
 
 
 def _slots(sel: torch.Tensor, num_experts: int, cap: int):
@@ -128,7 +139,7 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
         slot_owner.index_put_((torch.where(keep, flat_sel, e), torch.where(keep, pos, 0)),
                               token_ids)
         x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-        expert_in = x_pad[slot_owner[:e]]  # (E, C, D)
+        expert_in = shd.constrain(x_pad[slot_owner[:e]], "model", None, None)  # (E, C, D)
         expert_out = _expert_ffn(p["experts"], cfg, expert_in)
         out_choice = expert_out[flat_sel, torch.where(keep, pos, 0)]  # (T k, D)
         out_choice = torch.where(keep[:, None], out_choice, 0.0)
@@ -136,16 +147,130 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
     else:
         raise ValueError(f"moe impl {impl!r} not in ('gather', 'einsum')")
 
-    y = y2d.reshape(b, s, d)
+    return _residuals(p, cfg, x, y2d.reshape(b, s, d)).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE: the production path under a mesh
+# ---------------------------------------------------------------------------
+
+def ep_layout(e: int, size: int, tokens: int, k: int, capacity_factor: float):
+    """(e_pad, experts a rank, capacity) of the reference's expert-parallel
+    MoE over a "model" dim of ``size`` for ``tokens`` local tokens."""
+    e_pad = -(-e // size) * size
+    cap = max(int(math.ceil(tokens * k * capacity_factor / e_pad)), 1)
+    return e_pad, e_pad // size, cap
+
+
+def _pad_experts(p: Params, e_pad: int, e: int):
+    """(padded experts, padded router weight): zero experts and zero router
+    columns past ``e``."""
+    if e_pad == e:
+        return p["experts"], p["router"]["w"]
+    experts = {name: {"w": F.pad(v["w"], (0, 0, 0, 0, 0, e_pad - e))}
+               for name, v in p["experts"].items()}
+    return experts, F.pad(p["router"]["w"], (0, e_pad - e))
+
+
+def ep_local(rw: torch.Tensor, experts: Params, cfg, x: torch.Tensor, lo: int, e: int,
+             cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One "model" rank's part of the expert-parallel MoE: its tokens x
+    (B, S, D) routed over all ``e_pad`` experts (router weight ``rw``, (D,
+    e_pad)), its experts ``experts`` (``[lo, lo + e_loc)`` of the padded
+    stack) run on the pairs that chose them. Returns (its partial sum of the
+    routed output, the aux loss of its tokens)."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.num_experts_per_tok
+    e_pad, e_loc = rw.shape[1], experts["w_in"]["w"].shape[0]
+    x2 = x.reshape(t, d)
+    logits = x2.float() @ rw.float()
+    if e_pad != e:  # padded experts are unroutable
+        logits = torch.cat([logits[:, :e], torch.full_like(logits[:, e:], -1e9)], dim=1)
+    probs = torch.softmax(logits, dim=-1)
+    weights, sel = torch.topk(probs, k, dim=-1, sorted=True)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    aux = aux_load_balance(probs[:, :e], torch.clamp(sel, max=e - 1), e)
+
+    flat_sel, pos, keep = _slots(sel, e_pad, cap)
+    mine = keep & (flat_sel >= lo) & (flat_sel < lo + e_loc)
+    local_e = flat_sel - lo
+    token_ids = torch.arange(t * k, device=x.device) // k
+    slot_owner = torch.full((e_loc + 1, cap), t, dtype=torch.int64, device=x.device)
+    slot_owner.index_put_((torch.where(mine, local_e, e_loc), torch.where(mine, pos, 0)),
+                          token_ids)
+    x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
+    expert_out = _expert_ffn(experts, cfg, x_pad[slot_owner[:e_loc]])  # (e_loc, C, D)
+    out_choice = expert_out[torch.where(mine, local_e, 0), torch.where(mine, pos, 0)]
+    out_choice = torch.where(mine[:, None], out_choice, 0.0)
+    y = torch.sum(out_choice.reshape(t, k, d) * weights.to(x.dtype)[:, :, None], dim=1)
+    return y.reshape(b, s, d), aux
+
+
+def ep_shard(p: Params, cfg, x: torch.Tensor, rank: int, size: int, *,
+             capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ep_local`` of rank ``rank`` of ``size`` from the whole (unpadded)
+    router and experts of ``p``: the sum over the ranks, in rank order, is
+    the reference's psum; the shared experts and dense residual are not
+    included."""
+    e = cfg.num_experts
+    e_pad, e_loc, cap = ep_layout(e, size, x.shape[0] * x.shape[1],
+                                  cfg.num_experts_per_tok, capacity_factor)
+    experts, rw = _pad_experts(p, e_pad, e)
+    lo = rank * e_loc
+    mine = {name: {"w": v["w"][lo:lo + e_loc]} for name, v in experts.items()}
+    return ep_local(rw, mine, cfg, x, lo, e, cap)
+
+
+def _residuals(p: Params, cfg, x, y):
     if "shared" in p:
         y = y + mlp_apply(p["shared"], cfg, x)
     if "dense" in p:  # arctic's dense residual, beside the experts
         y = y + mlp_apply(p["dense"], cfg, x)
-    return y.to(x.dtype), aux
+    return y
 
 
 def moe_apply_ep(p: Params, cfg, x: torch.Tensor, *,
                  capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's expert-parallel MoE without a mesh: ``moe_apply`` at the
-    same capacity factor. Expert parallelism over a mesh is ROADMAP A.12."""
-    return moe_apply(p, cfg, x, capacity_factor=capacity_factor)
+    """Expert-parallel MoE under the active mesh (x a DTensor); ``moe_apply``
+    un-meshed, or on a mesh with no "model" dim."""
+    mesh = shd.active_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names or not shd.is_dtensor(x):
+        return moe_apply(p, cfg, x, capacity_factor=capacity_factor)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model")
+    b, s, d = x.shape
+    e, size = cfg.num_experts, mesh.size(mi)
+    dp = shd.axis_size(mesh, shd.dp_axes(mesh, b))
+    e_pad, e_loc, cap = ep_layout(e, size, (b // dp) * s, cfg.num_experts_per_tok,
+                                  capacity_factor)
+    lo = mesh.get_local_rank("model") * e_loc
+    # tokens sharded over the batch axes, whole over "model"; each rank's
+    # output is a part of the sum over "model" (its experts) and its aux a
+    # part of the mean over the batch axes, so the gradients of the whole
+    # inputs are partial sums there
+    tokens, sums, whole = shd.row_placements(mesh, b)
+    over_model = [Partial() if i == mi else t for i, t in enumerate(tokens)]
+    everywhere = [Partial()] * len(names)
+    xl = x.redistribute(mesh, tokens).to_local(grad_placements=over_model)
+    rw = p["router"]["w"].redistribute(mesh, whole).to_local(grad_placements=everywhere)
+    if e_pad == e and all(w["w"].placements[mi] == Shard(0) for w in p["experts"].values()):
+        # the experts are already sharded over "model": each rank holds its own
+        place = [Shard(0) if i == mi else w for i, w in enumerate(whole)]
+        grad = [Shard(0) if i == mi else Partial() for i in range(len(names))]
+        mine = {name: {"w": v["w"].redistribute(mesh, place).to_local(grad_placements=grad)}
+                for name, v in p["experts"].items()}
+    else:
+        full = {name: {"w": v["w"].redistribute(mesh, whole).to_local(grad_placements=everywhere)}
+                for name, v in p["experts"].items()}
+        experts, rw = _pad_experts({"experts": full, "router": {"w": rw}}, e_pad, e)
+        mine = {name: {"w": v["w"][lo:lo + e_loc]} for name, v in experts.items()}
+    y, aux = ep_local(rw, mine, cfg, xl, lo, e, cap)
+    y = DTensor.from_local(y.to(x.dtype), mesh, over_model,
+                           run_check=False).redistribute(mesh, tokens)
+    # the reference's pmean over the batch axes, each "model" rank a 1/m share
+    aux_place = [Partial() if i == mi else t for i, t in enumerate(sums)]
+    aux = DTensor.from_local(aux / (size * dp), mesh, aux_place,
+                             run_check=False).redistribute(mesh, whole)
+    return _residuals(p, cfg, x, y), aux

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ATTN, MLSTM, RECUR, SLSTM
+from ..distributed.sharding import by_rows, constrain, is_dtensor
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import DTYPES, Params, apply_norm, norm_init
@@ -90,13 +91,19 @@ def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Ten
     if kind == ATTN:
         x = x + attn.attn_apply(p["attn"], cfg, h, positions, causal=True,
                                 window=_layer_window(cfg, kind), impl=impl)
-    elif kind == RECUR:
-        x = x + rglru_apply(p["recur"], cfg, h)
-    elif kind == MLSTM:
-        x = x + mlstm_apply(p["mlstm"], cfg, h)
     else:
-        x = x + slstm_apply(p["slstm"], cfg, h)
-    return _ffn(p, cfg, x)
+        name, fn = {RECUR: ("recur", rglru_apply), MLSTM: ("mlstm", mlstm_apply),
+                    SLSTM: ("slstm", slstm_apply)}[kind]
+        if is_dtensor(h):  # the recurrences have no DTensor rules: each rank's rows
+            x = x + by_rows(lambda lp, lh: fn(lp, cfg, lh), p[name], h)
+        else:
+            x = x + fn(p[name], cfg, h)
+    x, aux = _ffn(p, cfg, x)
+    if cfg.act_shard == "seq":
+        x = constrain(x, ("pod", "data"), "model", None)
+    else:
+        x = constrain(x, ("pod", "data"), None, None)
+    return x, aux
 
 
 def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
@@ -113,7 +120,7 @@ def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str =
     else:
         y, new_cache = slstm_apply(p["slstm"], cfg, h, state0=cache, return_state=True)
     x, _ = _ffn(p, cfg, x + y)
-    return x, new_cache
+    return constrain(x, ("pod", "data"), None, None), new_cache
 
 
 def block_decode(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):

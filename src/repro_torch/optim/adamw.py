@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dcsim import ties
+from ..distributed.sharding import is_dtensor
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
@@ -103,6 +104,8 @@ def adamw_init(params: Params, cfg: AdamWConfig, lead: Tuple[int, ...] = ()) -> 
     ``step`` has those axes (the shape of the JAX package's vmapped init)."""
     if lead and (cfg.quantize_moments or cfg.moment_dtype != "float32"):
         raise ValueError("stacked agents keep float32 moments")
+    if cfg.quantize_moments and any(is_dtensor(p) for p in tree_leaves(params)):
+        raise NotImplementedError("int8 moments over sharded parameters: ROADMAP.md A.12.6")
     device = tree_leaves(params)[0].device
     zeros = lambda p: _moment_write(torch.zeros_like(p, dtype=torch.float32), cfg)
     return OptState(torch.zeros(lead, dtype=torch.int32, device=device),
@@ -143,7 +146,9 @@ def adamw_update(
 
     def per_agent(x, like):
         # a (n,) per-agent factor against an (n, ...) leaf
-        return x.reshape(x.shape + (1,) * (like.ndim - nb)) if torch.is_tensor(x) else x
+        if not nb or not torch.is_tensor(x):
+            return x
+        return x.reshape(x.shape + (1,) * (like.ndim - nb))
 
     def upd(p, g, mu, nu):
         g = g.float() * per_agent(clip, p)

@@ -3,8 +3,10 @@
 The port of ``repro.optim.grad_compress``. Gradients are quantized to int8
 with blockwise absmax scales (``adamw._quantize``) before the reduction, and
 the quantization error is carried to the next step (error feedback keeps
-SGD/Adam convergence). On one card there is nothing to reduce: the train
-step does not call it, as the reference's flag-gated train step does not.
+SGD/Adam convergence). :func:`compressed_psum` is the reduction over a
+process group (the reference's ``shard_map`` over a mesh axis, "pod" by
+default); the train step does not call it, as the reference's flag-gated
+train step does not.
 """
 from __future__ import annotations
 
@@ -40,10 +42,16 @@ def init_error(grads: Any) -> Any:
 
 
 def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Quantized all-reduce over a process group. Without one (one card)
-    there is nothing to reduce and ``x`` comes back, as the reference's
-    returns ``x`` when its axis is not in the mesh."""
+    """Quantized all-reduce over the process group ``group`` (e.g. a mesh
+    dim's, ``mesh.get_group("pod")``): each rank quantizes its own ``x`` to
+    int8 blocks and back, and the ranks' dequantized values are summed.
+    Without a group (one card) ``x`` comes back, as the reference's returns
+    ``x`` when its axis is not in the mesh."""
     if group is None:
         return x
-    raise NotImplementedError("a compressed all-reduce over a process group needs the "
-                              "port's mesh: ROADMAP.md A.12")
+    import torch.distributed as dist
+
+    q, s = _quantize(x.float())
+    approx = _dequantize(q, s, x.shape)
+    dist.all_reduce(approx, op=dist.ReduceOp.SUM, group=group)
+    return approx

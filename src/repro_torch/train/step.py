@@ -8,6 +8,12 @@ once. ``train_step`` takes its gradients with ``torch.autograd.grad`` over
 fresh leaves of the parameters: a leaf the loss never reads (the mLSTM's
 ``wv``) gets zeros, as ``jax.grad`` gives it, so weight decay still moves it
 as in the reference. PyTorch runs eagerly; there is nothing to jit.
+
+Over a mesh the parameters and the batch are DTensors (``launch/train.py``):
+a gradient comes back a partial sum over the axes its parameter is
+replicated on (the data-parallel reduction) and is redistributed to its
+parameter's placements before the optimizer; the metrics are plain tensors
+with every rank's full value.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as shd
 from ..models import model as model_lib
 from ..models.layers import unembed
 from ..optim.adamw import AdamWConfig, OptState, adamw_init, adamw_update
@@ -42,11 +49,28 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(summed negative log-likelihood, count) of fp32 ``logits`` at the
-    labels that are >= 0."""
+    labels that are >= 0. DTensors are summed over each rank's rows
+    (:func:`_nll_rows`)."""
+    if shd.is_dtensor(logits):
+        return _nll_rows(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def _nll_rows(logits, labels):
+    """``_nll`` of DTensors: each rank sums its own batch rows with the vocab
+    whole (a gather over a vocab-sharded dim has no working rule), and the
+    rows' sums are added over the batch axes."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = logits.device_mesh
+    rows, sums, whole = shd.row_placements(mesh, logits.shape[0])
+    local = _nll(logits.redistribute(mesh, rows).to_local(),
+                 labels.redistribute(mesh, rows).to_local())
+    return tuple(DTensor.from_local(t, mesh, sums, run_check=False).redistribute(mesh, whole)
+                 for t in local)
 
 
 def _chunk_nll(table: torch.Tensor, h: torch.Tensor, lab: torch.Tensor):
@@ -96,16 +120,25 @@ def loss_and_grads(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                    impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss, {"ce", "aux"}, grads): the gradient of every parameter leaf,
     zeros for a leaf the loss does not read, each cast to its parameter's
-    dtype (the reference pins the reduction boundary to it)."""
+    dtype (the reference pins the reduction boundary to it) and, over a
+    mesh, reduced to its parameter's placements."""
     leaves: List[torch.Tensor] = tree_leaves(params)
     with torch.enable_grad():
         fresh = [p.detach().requires_grad_(True) for p in leaves]
         loss, parts = loss_fn(tree_unflatten(params, fresh), cfg, batch, impl=impl)
         grads = torch.autograd.grad(loss, fresh, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+    grads = [torch.zeros_like(p) if g is None else _reduced(g.to(p.dtype), p)
              for g, p in zip(grads, leaves)]
     parts = {k: v.detach() for k, v in parts.items()}
     return loss.detach(), parts, tree_unflatten(params, grads)
+
+
+def _reduced(g, p):
+    """A DTensor gradient on its parameter's placements (an all-reduce where
+    it is partial); a plain one as it is."""
+    if shd.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def train_step(
@@ -122,7 +155,8 @@ def train_step(
     loss, parts, grads = loss_and_grads(state.params, cfg, batch, impl=impl)
     lr_scale = warmup_cosine(state.opt.step, **(schedule_kwargs or {}))
     new_params, new_opt, om = adamw_update(grads, state.opt, state.params, opt_cfg, lr_scale)
-    metrics = {"loss": loss, **parts, **om, "step": new_opt.step}
+    metrics = {"loss": shd.full(loss), **{k: shd.full(v) for k, v in parts.items()},
+               "grad_norm": shd.full(om["grad_norm"]), "lr": om["lr"], "step": new_opt.step}
     return TrainState(new_params, new_opt), metrics
 
 

@@ -212,8 +212,24 @@ def test_train_loop_crash_resume_identical(tmp_path):
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train_loop(steps=1, mesh=object(), device="cpu")
+    """``train_loop`` takes a mesh of its world: a production mesh is refused
+    by a world of one, naming both sizes; the (1, 1) host mesh trains as no
+    mesh does."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    started = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device="cpu")
+        with pytest.raises(ValueError, match="512 ranks; this world has 1"):
+            train_loop(steps=1, mesh=make_production_mesh(multi_pod=True, device="cpu"),
+                       device="cpu")
+        kw = dict(steps=2, batch=2, seq=16, log_every=100, device="cpu")
+        assert train_loop(mesh=mesh, **kw)["losses"] == train_loop(**kw)["losses"]
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def test_training_entry_points_default_to_the_card():

@@ -199,10 +199,21 @@ def test_compress_decompress_error_shrinks_signal():
 
 
 def test_compressed_psum_without_a_group_is_the_identity():
+    """Without a group ``x`` comes back; over a group of one rank the sum is
+    its own int8 round trip (more ranks: ``tests/test_torch_mesh.py``)."""
+    import torch.distributed as dist
+
     x = torch.randn(300)
     assert tgc.compressed_psum(x) is x
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tgc.compressed_psum(x, group=object())
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        got = tgc.compressed_psum(x, group=dist.group.WORLD)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    assert torch.equal(got, tgc.compress_decompress(x)[0])
 
 
 def test_opt_state_fields_match_jax():
