@@ -34,7 +34,12 @@ qwen2-moe-a2.7b's expert-parallel layer at full width over 4 and 16 ranks;
 ``[train-arch]`` every
 arch at smoke width against the same steps on the host CPU (a second process,
 ``--cpu-train-reference PATH``); ``[train-resume]`` a crash at step 17 and a
-resume bit-equal to an uninterrupted run. Then
+resume bit-equal to an uninterrupted run. ``[dryrun-card]`` dry-runs
+(``launch/dryrun.py``) [train]'s step on a (1, 1) mesh: its argument bytes
+held to what [train]'s state takes on the card, its peak against [train]'s,
+the step's share of the card's bf16 peak; ``[dryrun]`` prints the dry run of
+one cell of each kind on the 16 x 16 mesh, from a third process on the host
+CPU (``--dryrun PATH``, a fake world of 256). Then
 it drives the scheduler path (``repro_torch.core``) on the paper's fleets
 built on the card:
 
@@ -298,6 +303,17 @@ TRAIN_BF16_FACTOR, TRAIN_BF16_LOSS_FLOOR = 2.0, 1e-3
 # the last bits forward)
 ARCH_STEPS, ARCH_LR = 8, 5e-3
 ARCH_FIRST_RTOL, ARCH_LOSS_RTOL = 1e-5, 1e-3
+# [dryrun-card]: the dry run of [train]'s step on a (1, 1) mesh; its
+# argument bytes held to what [train]'s state and batch take on the card (the
+# caching allocator rounds each block up to 512 bytes: ~0.1 MB of ~12.4 GB)
+DRYRUN_ARG_RTOL = 0.01
+# [dryrun]: one cell of each kind on the 16 x 16 mesh, in a CPU process of its
+# own (a fake world of 256); the quadratic long_500k cell must be skipped
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("qwen2-7b", "prefill_32k"),
+                ("qwen2-moe-a2.7b", "decode_32k"), ("xlstm-125m", "long_500k"),
+                ("llama3.2-1b", "long_500k"))
+DRYRUN_SKIPPED = (("llama3.2-1b", "long_500k"),)
+DRYRUN_TIMEOUT_S = 900
 # [train-resume]: tests/test_fault_tolerance.py's crash at step 17 of 30
 RESUME_KW = dict(arch="llama3.2-1b", smoke=True, batch=2, seq=32, lr=1e-3, seed=3,
                  save_every=10, log_every=1000)
@@ -395,6 +411,13 @@ ROW_RTOL = 1e-5
 OBS_HOURS = 2
 OBS_TAPS = ("engine/hour", "game/nash_residual")
 RECORDS = ROOT / "build" / "chip_smoke_records.jsonl"
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
 
 
 def fail(msg: str) -> None:
@@ -558,10 +581,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 1. device --------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
-          flush=True)
+    print(card_line(), flush=True)
     phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -2253,7 +2273,8 @@ def train_phase(dev: torch.device, records: dict) -> dict:
     phase("train-profile", what="forward and backward by CUDA events (device time between "
           "markers)", forward_ms=f"{marks[0].elapsed_time(marks[1]):.3f}",
           backward_ms=f"{marks[1].elapsed_time(marks[2]):.3f}")
-    return {"losses": losses, "step_ms": step_ms, "launches": launches}
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "peak_bytes": peak_gib * 2 ** 30}
 
 
 def train_arch_losses(device) -> dict:
@@ -2554,6 +2575,106 @@ def ep_shards_phase(dev: torch.device, ref_path: Path, child) -> None:
         fail(f"mesh-shards experts: m=4 {rel4} against moe_apply, m=16 {rel16} against the CPU")
 
 
+def dryrun_card_phase(dev: torch.device, plain_run: dict) -> None:
+    """[dryrun-card]: the dry run (``launch/dryrun.py``) of [train]'s step,
+    llama3.2-1b at full width, batch 8 x 256, bf16, fp32 moments, remat
+    "full", on a (1, 1) mesh in a fake world of one. Its argument bytes are
+    held to the bytes [train]'s state and batch take on the card (built as
+    ``train_loop`` builds them); its peak against [train]'s peak is reported
+    (the dry run takes the plain attention path, not the kernels'); its
+    MODEL_FLOPS over [train]'s step time is the step's share of the card's
+    989 TFLOP/s (bf16, dense)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, AdamWConfig(lr=1e-3), device=dev)
+    batch = make_batch(cfg, seed=1, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
+    torch.cuda.synchronize()
+    measured = torch.cuda.memory_allocated() - base
+    del state, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        rec = dryrun.lower_cell(ARCH, "train_4k", False,
+                                mesh=make_mesh((1, 1), ("data", "model"), device="cpu"),
+                                probe=False,
+                                shape_override=ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                           "train"))
+    wall_s = time.perf_counter() - t0
+    predicted = rec["argument_bytes_per_device"]
+    gap = abs(predicted / measured - 1)
+    peak = predicted + rec["temp_bytes_per_device"]
+    achieved = rec["model_flops"] / (plain_run["step_ms"] / 1e3)
+    phase("dryrun-card", arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype,
+          moments="float32", remat=cfg.remat, mesh=rec["mesh"], status="OK",
+          argument_bytes_predicted=predicted, allocated_bytes_measured=measured,
+          argument_rel_gap=f"{gap:.3g}", peak_bytes_predicted=peak,
+          train_peak_bytes=int(plain_run["peak_bytes"]),
+          peak_ratio_predicted_to_train=f"{peak / plain_run['peak_bytes']:.4f}",
+          model_flops=f"{rec['model_flops']:.6g}",
+          flops_per_device=f"{rec['flops_per_device']:.6g}",
+          useful_ratio=f"{rec['useful_ratio']:.4f}",
+          train_step_ms=f"{plain_run['step_ms']:.3f}", achieved_tflops=f"{achieved / 1e12:.3f}",
+          share_of_989_tflops=f"{achieved / PEAK_BF16_FLOPS:.5f}", card=f"'{card_line()}'",
+          wall_s=f"{wall_s:.1f}")
+    if gap > DRYRUN_ARG_RTOL:
+        fail(f"dryrun-card: predicted argument bytes {predicted} against {measured} allocated "
+             f"({gap:.3g} > {DRYRUN_ARG_RTOL})")
+
+
+def dryrun_phase(child, path: Path) -> None:
+    """[dryrun]: the CPU process's dry run of ``DRYRUN_CELLS`` on the 16 x 16
+    mesh (a fake world of 256, no card), a line a cell, the three roofline
+    terms against the H100's record; every cell OK but the skipped one."""
+    try:
+        child.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        fail(f"dryrun: the CPU process did not end in {DRYRUN_TIMEOUT_S} s")
+    if child.returncode != 0 or not path.exists():
+        fail(f"dryrun: the CPU process exited {child.returncode}")
+    out = json.loads(path.read_text())
+    for rec in out["cells"]:
+        cell = (rec["arch"], rec["shape"])
+        want = "SKIP" if cell in DRYRUN_SKIPPED else "OK"
+        if rec["status"] != "OK":
+            phase("dryrun", arch=cell[0], shape=cell[1], mesh=rec["mesh"],
+                  status=rec["status"], why=f"'{rec.get('reason') or rec.get('error')}'")
+        else:
+            phase("dryrun", arch=cell[0], shape=cell[1], mesh=rec["mesh"], status="OK",
+                  kind=rec["kind"], fsdp=rec["fsdp"],
+                  argument_bytes_per_device=rec["argument_bytes_per_device"],
+                  temp_bytes_per_device=rec["temp_bytes_per_device"],
+                  flops_per_device=f"{rec['flops_per_device']:.6g}",
+                  collective_bytes_per_device=f"{rec['collective_bytes_per_device']:.6g}",
+                  compute_s=f"{rec['compute_s']:.6g}", memory_s=f"{rec['memory_s']:.6g}",
+                  collective_s=f"{rec['collective_s']:.6g}", bottleneck=rec["bottleneck"],
+                  useful_ratio=f"{rec['useful_ratio']:.4f}", trace_s=rec["trace_s"])
+        if rec["status"] != want:
+            fail(f"dryrun: {cell} is {rec['status']}, expected {want}")
+    if [(r["arch"], r["shape"]) for r in out["cells"]] != list(DRYRUN_CELLS):
+        fail("dryrun: the CPU process did not report every cell")
+    phase("dryrun", cells=len(out["cells"]), wall_s=f"{out['seconds']:.1f}")
+
+
+def cpu_dryrun(path: Path) -> int:
+    """[dryrun]'s cells in a fake world of 256 on the host CPU, written to
+    ``path`` as JSON."""
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cells = dryrun.run_cells(DRYRUN_CELLS, [False], None, probe=False)
+    path.write_text(json.dumps({"cells": cells, "seconds": time.perf_counter() - t0},
+                               default=str))
+    return 0
+
+
 def train_phases(dev: torch.device, records: dict) -> None:
     """The training path on the card, with the CPU process that [train-arch]
     holds the card against started first, beside the card's work."""
@@ -2561,23 +2682,33 @@ def train_phases(dev: torch.device, records: dict) -> None:
     ref_path.parent.mkdir(exist_ok=True)
     ref_path.unlink(missing_ok=True)
     ep_path(ref_path).unlink(missing_ok=True)
+    dry_path = ROOT / "build" / "chip_smoke_dryrun.json"
+    dry_path.unlink(missing_ok=True)
+    cpu_env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                              "--cpu-train-reference", str(ref_path)],
-                             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                              "--cpu-train-reference", str(ref_path)], env=cpu_env)
+    procs = [child]
     try:
         train_hold_phase(dev)
         torch.cuda.empty_cache()
         plain_run = train_phase(dev, records)
         torch.cuda.empty_cache()
+        dryrun_card_phase(dev, plain_run)
         mesh_train_phase(dev, records, plain_run)
         torch.cuda.empty_cache()
+        # [dryrun]'s process starts after the timed training phases: its CPU
+        # work would slow their host-bound steps
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--dryrun", str(dry_path)], env=cpu_env))
         ep_shards_phase(dev, ref_path, child)
         train_arch_phase(dev, child, ref_path)
         train_resume_phase(dev)
+        dryrun_phase(procs[1], dry_path)
     finally:
-        if child.poll() is None:
-            child.kill()
-        child.wait()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
 def cpu_train_reference(path: Path) -> int:
@@ -2596,4 +2727,6 @@ if __name__ == "__main__":
         sys.exit(cpu_reference(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--cpu-train-reference"]:
         sys.exit(cpu_train_reference(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(cpu_dryrun(Path(sys.argv[2])))
     sys.exit(main())

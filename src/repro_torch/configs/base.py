@@ -3,7 +3,8 @@
 The port keeps its own copy so that it imports nothing of ``repro``. Every
 field is kept, so ``dataclasses.replace`` takes the same arguments in both
 packages. ``param_count`` sizes the ``llm`` workload's model families
-(``dcsim.capability``).
+(``dcsim.capability``). ``SHAPES`` and ``shape_applicable`` are the dry
+run's input-shape cells (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -89,6 +90,19 @@ class ModelConfig:
 
     def pattern_period(self) -> Tuple[str, ...]:
         return self.block_pattern if self.block_pattern else (ATTN,)
+
+    def is_subquadratic(self) -> bool:
+        """True if the arch can decode at 0.5M context (no full-attn KV)."""
+        kinds = set(self.pattern())
+        if ATTN in kinds and self.attn_window == 0:
+            return False
+        if self.is_encoder_decoder:
+            return False
+        return True
+
+    def has_decode(self) -> bool:
+        """Encoder-only models have no decode step. All ours decode."""
+        return True
 
     # -- param counting (for roofline MODEL_FLOPS = 6*N*D) --------------------
     def param_count(self, active_only: bool = False) -> int:
@@ -187,3 +201,28 @@ class ModelConfig:
                 moe_dense_d_ff=128 if self.moe_dense_residual else 0,
             )
         return dataclasses.replace(self, **updates)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and the reason when skipped."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic():
+        return False, "full quadratic attention: 0.5M-token decode skipped per assignment"
+    return True, ""

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import re
 from typing import Any, Optional, Sequence, Tuple
 
@@ -256,6 +257,31 @@ def cache_specs_tree(cache: Any, mesh, batch: int):
                           cache)
 
 
+def place_cache(cache: Any, batch: int):
+    """Under the active mesh, every tensor of a decode-cache tree on the
+    placements of its spec (:func:`_cache_spec`: KV caches sharded by
+    sequence over "model" and by ``batch`` rows over the batch axes),
+    whatever its current placement; un-meshed, ``cache`` itself. A plain
+    tensor is the same on every rank (zeros), so each rank keeps its own
+    slice of it without a collective."""
+    mesh = active_mesh()
+    if mesh is None:
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf  # a layer's position
+        placements = to_placements(_cache_spec(mesh, path, tuple(leaf.shape), batch), mesh)
+        if not is_dtensor(leaf):
+            return distribute_tensor(leaf, mesh, placements, src_data_rank=None)
+        if tuple(leaf.placements) == placements:
+            return leaf
+        return leaf.redistribute(mesh, placements)
+
+    return _map_with_path(put, cache)
+
+
 def batch_specs_tree(batch_tree: Any, mesh, batch: int):
     """Model-input specs: shard dim 0 (batch) over the batch axes."""
     return _map_with_path(lambda path, leaf: batch_spec(mesh, batch, len(leaf.shape) - 1),
@@ -331,7 +357,52 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     placements = to_placements(_fixed(mesh, x, axes), mesh)
     if tuple(x.placements) == placements:
         return x
-    return x.redistribute(x.device_mesh, placements)
+    y = x.redistribute(x.device_mesh, placements)
+    local = y.to_local()
+    if local.is_contiguous():
+        return y
+    # leaving a dim sharded unevenly (whisper's 1500 frames over 16) gives a
+    # padded shard's narrowed view, which DTensor's ``view`` (inside ``@``)
+    # cannot flatten
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), y.device_mesh, placements, run_check=False,
+                              shape=y.shape, stride=y.stride())
+
+
+def split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``x`` (..., heads * head_dim) as (..., heads, head_dim). A DTensor whose
+    last dim is sharded over a mesh dim that does not divide ``heads`` (8 kv
+    heads on a 16-wide "model" dim) is gathered there first: DTensor cannot
+    split a sharded dim unevenly, and ``constrain`` replicates such heads
+    anyway, as the reference's does."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = x.ndim - 1
+        placements = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                           and heads % x.device_mesh.size(i) else p
+                           for i, p in enumerate(x.placements))
+        if placements != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., heads, head_dim) as (..., heads * head_dim). A DTensor whose
+    heads and head dims are not sharded is merged on each rank's local tensor,
+    so that its gradient comes back on ``x``'s own placements: DTensor's
+    reshape would split the gradient as it arrives, its last dim sharded by
+    the output projection, and cannot split it unevenly (56 heads over 16)."""
+    merged = (*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if not is_dtensor(x) or any(getattr(p, "dim", -1) >= x.ndim - 2 for p in x.placements):
+        return x.reshape(merged)
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    stride = tuple(math.prod(merged[i + 1:]) for i in range(len(merged)))
+    return DTensor.from_local(local.reshape(*local.shape[:-2], -1), x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(merged), stride=stride)
 
 
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
@@ -353,19 +424,50 @@ def row_placements(mesh, batch: int):
             [Replicate()] * len(names))
 
 
-def by_rows(fn, params, x):
-    """``fn(params, x)`` on each rank's own batch rows of the DTensor ``x``
-    (B, ...), with ``params`` whole: for plain ops that have no DTensor rule
-    (the recurrences over the sequence). The result is sharded as the rows;
-    the parameters' gradients are partial sums over the batch axes."""
+def by_rows(fn, params, x, *state):
+    """``fn(params, x, *state)`` on each rank's own batch rows of the DTensor
+    ``x`` (B, ...) and of the trees ``state`` (a recurrence's carried state,
+    leading dim B), with ``params`` whole: for plain ops that have no DTensor
+    rule (the recurrences over the sequence). Every tensor of the result is
+    sharded as the rows; the parameters' gradients are partial sums over the
+    batch axes."""
     from torch.distributed.tensor import DTensor
 
     mesh = x.device_mesh
     rows, sums, whole = row_placements(mesh, x.shape[0])
     local = tree_map(lambda t: t.redistribute(mesh, whole).to_local(grad_placements=sums)
                      if is_dtensor(t) else t, params)
-    y = fn(local, x.redistribute(mesh, rows).to_local())
-    return DTensor.from_local(y, mesh, rows, run_check=False)
+    own = [tree_map(lambda t: t.redistribute(mesh, rows).to_local() if is_dtensor(t) else t, s)
+           for s in (x, *state)]
+    return tree_map(lambda y: DTensor.from_local(y, mesh, rows, run_check=False)
+                    if isinstance(y, torch.Tensor) else y, fn(local, *own))
+
+
+def write_at(x, value, dim: int, index: int) -> None:
+    """Set index ``index`` of ``dim`` of the DTensor ``x`` to ``value`` in
+    place, each rank in its own shard: the rank whose span of ``dim`` holds
+    ``index`` writes its rows of ``value`` there, the others write nothing,
+    and nothing of ``x`` moves (where ``x[:, index] = value`` on a DTensor
+    sharded on ``dim`` gathers all of ``x``). ``value`` is laid out as ``x``
+    less ``dim``; it is redistributed to ``x``'s shards of the other dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    placements = [Shard(p.dim - (p.dim > dim)) if isinstance(p, Shard) and p.dim != dim
+                  else Replicate() for p in x.placements]
+    if is_dtensor(value):
+        if tuple(value.placements) != tuple(placements):
+            value = value.redistribute(mesh, placements)
+        value = value.to_local()
+    # this rank's span of ``dim``: DTensor's chunks (ceil-sized), mesh dim by mesh dim
+    start, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = mesh.get_coordinate()[i] * chunk
+            start, size = start + lo, max(0, min(chunk, size - lo))
+    if start <= index < start + size:
+        x.to_local().select(dim, index - start).copy_(value)
 
 
 def full(x):

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -36,6 +36,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
 # head dims that only the fp32 (CUDA-core) paths take: 16, cfg.smoke()'s
 FP32_HEAD_DIMS = (16,)
+CUDA_GRID_Y = 65535  # a launch grid's y limit
 
 
 def nvcc() -> str:
@@ -129,11 +130,11 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int) -> None:
+def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor]) -> None:
     """Raise on what the attention kernels do not take: another device than
     one CUDA card, a dtype other than fp32 / bf16 (the same for all), a
     non-contiguous tensor, one not 16-byte aligned (the kernels load 16 bytes
-    a lane), or a head dim other than 32, 64, 128 or 256 (16 too in fp32)."""
+    a lane). Shapes are :func:`shape_error`'s."""
     first = next(iter(tensors.values()))
     for arg, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
@@ -146,8 +147,34 @@ def check_cuda_inputs(name: str, tensors: Dict[str, torch.Tensor], head_dim: int
             raise ValueError(f"{name}: {arg} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} is not 16-byte aligned")
-    if head_dim not in HEAD_DIMS and not (head_dim in FP32_HEAD_DIMS
-                                          and first.dtype == torch.float32):
-        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS} for {first.dtype} "
-                         f"({FP32_HEAD_DIMS} in float32 only); other head dims are "
-                         "ROADMAP.md B.1")
+
+
+def shape_error(name: str, *, b: int, sq: int, skv: int, h: int, d: int,
+                dtype: torch.dtype) -> Optional[str]:
+    """Why the attention kernel ``name`` ("flash_attention", "flash_attention_bwd"
+    or "decode_attention") refuses a call of these shapes, or None.
+
+    These are the checks that read shapes alone, so that the kernels' wrappers
+    and the dry run (``launch/dryrun.py``, which holds every cell's per-rank
+    attention shapes to them) share one rule: a head dim other than 32, 64,
+    128 or 256 (16 too in fp32), and a grid whose y axis exceeds
+    ``CUDA_GRID_Y``. The flash grids put b * h (fp32: query tiles, b * h),
+    64-row query tiles and the backward's 32- or 64-key tiles on y; decode
+    puts the batch there.
+    """
+    if d not in HEAD_DIMS and not (d in FP32_HEAD_DIMS and dtype == torch.float32):
+        return (f"{name}: head dim {d} not in {HEAD_DIMS} for {dtype} ({FP32_HEAD_DIMS} in "
+                "float32 only); other head dims are ROADMAP.md B.1")
+    if name == "decode_attention":
+        if b > CUDA_GRID_Y:
+            return f"{name}: batch {b} over the grid's y limit {CUDA_GRID_Y}"
+    elif sq == 0 or max(b * h, -(-sq // 64), -(-skv // 32)) > CUDA_GRID_Y:
+        return f"{name}: grid of {sq} query rows, {skv} keys x {b * h} heads out of range"
+    return None
+
+
+def check_shapes(name: str, **shape) -> None:
+    """Raise :func:`shape_error`'s reason, if any."""
+    err = shape_error(name, **shape)
+    if err is not None:
+        raise ValueError(err)

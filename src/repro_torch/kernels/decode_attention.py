@@ -51,12 +51,13 @@ def decode_attention(
     b, h, d = q.shape
     _, s_len, kvh, _ = k_cache.shape
     _build.check_cuda_inputs("decode_attention", {"q": q, "k_cache": k_cache,
-                                                  "v_cache": v_cache}, d)
+                                                  "v_cache": v_cache})
     if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d
-            or h % kvh or b > 65535):
+            or h % kvh):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k_cache "
                          f"{tuple(k_cache.shape)}, v_cache {tuple(v_cache.shape)} do not "
                          "form a GQA decode")
+    _build.check_shapes("decode_attention", b=b, sq=1, skv=s_len, h=h, d=d, dtype=q.dtype)
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError(f"decode_attention: lengths must be a contiguous ({b},) int32 "

@@ -62,7 +62,7 @@ BWD_KERNEL = _build.CudaKernel(
 )
 # the H100's SMs: the dk/dv grid the backward's head split aims to fill
 H100_SMS = 132
-CUDA_GRID_X, CUDA_GRID_Y = 2 ** 31 - 1, 65535
+CUDA_GRID_X, CUDA_GRID_Y = 2 ** 31 - 1, _build.CUDA_GRID_Y
 
 
 class BwdPlan(NamedTuple):
@@ -100,15 +100,11 @@ def _shapes(name: str, q, k, v, **more) -> Tuple[int, ...]:
     """(b, sq, skv, h, kvh, d) of a GQA attention the kernels take; raises otherwise."""
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
-    _build.check_cuda_inputs(name, {"q": q, "k": k, "v": v, **more}, d)
+    _build.check_cuda_inputs(name, {"q": q, "k": k, "v": v, **more})
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not form a GQA attention")
-    # the kernels' grids put b * h (fp32: query tiles, b * h), 64-row query
-    # tiles and the backward's 32- or 64-key tiles on y
-    if sq == 0 or max(b * h, -(-sq // 64), -(-skv // 32)) > CUDA_GRID_Y:
-        raise ValueError(f"{name}: grid of {sq} query rows, {skv} keys x {b * h} heads "
-                         "out of range")
+    _build.check_shapes(name, b=b, sq=sq, skv=skv, h=h, d=d, dtype=q.dtype)
     return b, sq, skv, h, kvh, d
 
 

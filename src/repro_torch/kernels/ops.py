@@ -19,17 +19,46 @@ own code does not change.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import List, Optional
 
 import torch
 
-from ..distributed.sharding import is_dtensor
+from ..distributed.sharding import constrain, is_dtensor
 from . import ref as _ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .flash_vjp import flash_attention_torch as _chunked
 
 IMPLS = ("auto", "chunked", "ref")
+# the calls :func:`record_calls` collects (None: not collecting)
+_CALLS: contextvars.ContextVar[Optional[List]] = contextvars.ContextVar(
+    "repro_torch_attention_calls", default=None)
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Collect, into the list it yields, every attention call made inside as
+    ``(kernel name, shapes)``: the shapes a rank's kernel would take (local
+    shards under a mesh), as ``_build.shape_error``'s keyword arguments. The
+    dry run holds them to the kernels' limits whatever ``impl`` ran."""
+    calls: List = []
+    token = _CALLS.set(calls)
+    try:
+        yield calls
+    finally:
+        _CALLS.reset(token)
+
+
+def _note(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
+    """Record a call of ``name`` on q (B, [S,] H, D) and k (B, Skv, KVH, D)."""
+    calls = _CALLS.get()
+    if calls is not None:
+        b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+        sq = q.shape[1] if q.ndim == 4 else 1
+        calls.append((name, dict(b=b, sq=sq, skv=k.shape[1], h=h, d=d, dtype=q.dtype)))
+
 
 
 def _check_impl(impl: str, impls=IMPLS) -> None:
@@ -55,6 +84,7 @@ def attention(
     kw = dict(causal=causal, window=window, sm_scale=sm_scale, softcap=softcap)
     if is_dtensor(q):
         return _per_shard(fn, q, k, v, q_offset=q_offset, **kw)
+    _note("flash_attention", q, k)
     return fn(q, k, v, q_offset=q_offset, **kw)
 
 
@@ -116,6 +146,7 @@ def _per_shard(fn, q, k, v, *, q_offset: int, **kw):
         q_offset = q_offset + rank * ql.shape[1]
     # the kernels take contiguous tensors: a shard's slice of heads is not
     ql, kl, vl = (t.contiguous() for t in (ql, kl, vl))
+    _note("flash_attention", ql, kl)
     o = fn(ql, kl, vl, q_offset=q_offset, **kw).contiguous()
     return DTensor.from_local(o, mesh, q.placements, run_check=False)
 
@@ -130,7 +161,26 @@ def decode_attention(
     softcap: float = 0.0,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Single-token decode attention over a KV cache, (B, H, D) query."""
+    """Single-token decode attention over a KV cache, (B, H, D) query.
+
+    ``impl="ref"`` under a mesh keeps the reference's distributed layout: the
+    cache stays sharded by sequence over "model" and the query is replicated
+    across it, so each "model" shard scores its own span of keys and the
+    softmax and PV reductions combine across shards, and the whole cache is
+    never gathered. Un-meshed the constraints are the identity. The kernel
+    path takes no mesh (serving runs on one card)."""
     _check_impl(impl, ("auto", "ref"))
-    fn = _decode_kernel if impl == "auto" else _ref.decode_attention_ref
-    return fn(q, k_cache, v_cache, lengths, sm_scale=sm_scale, softcap=softcap)
+    if impl == "auto":
+        _note("decode_attention", q, k_cache)
+        return _decode_kernel(q, k_cache, v_cache, lengths, sm_scale=sm_scale, softcap=softcap)
+    q = constrain(q, ("pod", "data"), None, None)
+    k_cache = constrain(k_cache, ("pod", "data"), "model", None, None)
+    v_cache = constrain(v_cache, ("pod", "data"), "model", None, None)
+    _note("decode_attention", _local(q), _local(k_cache))
+    out = _ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale,
+                                    softcap=softcap)
+    return constrain(out, ("pod", "data"), None, None)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t

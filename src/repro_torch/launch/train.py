@@ -42,9 +42,9 @@ from ..data.tokens import TokenPipeline
 from ..distributed import sharding as shd
 from ..distributed.fault_tolerance import HeartbeatMonitor
 from ..models.model import resolve_device
-from ..optim.adamw import AdamWConfig, OptState
+from ..optim.adamw import AdamWConfig, OptState, _is_q
 from ..train.step import TrainState, init_train_state, make_train_step
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 
 
 def build(arch: str, smoke: bool, lr: float, quantize_moments: bool):
@@ -57,8 +57,13 @@ def build(arch: str, smoke: bool, lr: float, quantize_moments: bool):
 
 def shard_state(state: TrainState, mesh, cfg) -> TrainState:
     """The parameters and both moments of ``state`` (the same full tensors on
-    every rank) distributed by the partition rules; ``step`` stays whole."""
+    every rank) distributed by the partition rules; int8 moments, the codes of
+    whole leaves, replicated (``optim/adamw.py``); ``step`` stays whole."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
     def put(tree):
+        if any(map(_is_q, tree_leaves(tree, _is_q))):
+            return tree_map(lambda t: distribute_tensor(t, mesh, [Replicate()] * mesh.ndim), tree)
         return shd.apply_shardings(tree, mesh, cfg=cfg)
 
     return TrainState(put(state.params), OptState(state.opt.step, put(state.opt.mu),
@@ -94,13 +99,15 @@ def train_loop(
     log_every: int = 10,
     mesh=None,
     fail_at: Optional[int] = None,  # simulate a failure at this step (tests)
+    quantize_moments: bool = False,
     device="cuda",
 ) -> Dict[str, Any]:
     """Train ``steps`` steps (from the latest checkpoint in ``ckpt_dir``, if
     any). Returns the final state, each step's loss and host seconds (the
-    step ends when its loss is read back), and the stragglers."""
+    step ends when its loss is read back), and the stragglers. The moments
+    are fp32, as the reference launcher's, or int8 with ``quantize_moments``."""
     device = resolve_device(device)
-    cfg, opt_cfg = build(arch, smoke, lr, quantize_moments=False)
+    cfg, opt_cfg = build(arch, smoke, lr, quantize_moments=quantize_moments)
     state = init_train_state(cfg, opt_cfg, seed=seed, device=device)
     if mesh is not None:
         state = shard_state(state, mesh, cfg)

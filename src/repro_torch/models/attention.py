@@ -13,7 +13,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..distributed.sharding import constrain
+from ..distributed.sharding import constrain, is_dtensor, merge_heads, split_heads, write_at
 from ..kernels import ops
 from .layers import DTYPES, Params, apply_mrope, apply_rope, dense, dense_init
 
@@ -43,11 +43,10 @@ def _apply_positional(cfg, q, k, positions):
 
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """Project x (B, S, D) to rotated q (B, S, H, hd), rotated k and v (B, S, KVH, hd)."""
-    b, s, _ = x.shape
     hd = cfg.hd()
-    q = dense(p["wq"], x).reshape(b, s, cfg.num_heads, hd)
-    k = dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
+    q = split_heads(dense(p["wq"], x), cfg.num_heads, hd)
+    k = split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
+    v = split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
     q, k = _apply_positional(cfg, q, k, positions)
     return q, k, v
 
@@ -58,7 +57,6 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     sharded by heads over "model" (k and v with it where their heads divide),
     or, under ``act_shard="seq"``, by query rows with k and v whole; each
     shard calls the kernel on its own part (``kernels/ops.py``)."""
-    b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     if cfg.act_shard == "seq":
         # sequence parallelism: q keeps its span of query rows, k and v are
@@ -71,19 +69,18 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         k = constrain(k, ("pod", "data"), None, "model", None)
     o = ops.attention(q, k, v, causal=causal, window=window,
                       softcap=cfg.attn_logit_softcap, impl=impl)
-    return dense(p["wo"], o.reshape(b, s, cfg.q_dim()))
+    return dense(p["wo"], merge_heads(o))
 
 
 def attn_prefill(p: Params, cfg, x, positions, cache: Dict[str, Any], *,
                  causal: bool = True, window: int = 0,
                  impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Prefill: as :func:`attn_apply`, and fills the layer's KV cache in place."""
-    b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     o = ops.attention(q, k, v, causal=causal, window=window,
                       softcap=cfg.attn_logit_softcap, impl=impl)
-    new_cache = _cache_write_prefill(cache, k, v, s)
-    return dense(p["wo"], o.reshape(b, s, cfg.q_dim())), new_cache
+    new_cache = _cache_write_prefill(cache, k, v, x.shape[1])
+    return dense(p["wo"], merge_heads(o)), new_cache
 
 
 def attn_decode(p: Params, cfg, x, positions, cache: Dict[str, Any], *,
@@ -108,7 +105,7 @@ def attn_decode(p: Params, cfg, x, positions, cache: Dict[str, Any], *,
     o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths,
                              softcap=cfg.attn_logit_softcap, impl=impl)  # (B, H, hd)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
-    return dense(p["wo"], o.reshape(b, 1, cfg.q_dim())), new_cache
+    return dense(p["wo"], merge_heads(o)[:, None]), new_cache
 
 
 def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
@@ -117,18 +114,16 @@ def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
     """Encoder-decoder cross attention of x (B, S, D) over the precomputed
     encoder k, v (B, Se, KVH, hd): the flash path without a mask, at decode
     too (S = 1), as the reference's."""
-    b, s, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.hd())
+    q = split_heads(dense(p["wq"], x), cfg.num_heads, cfg.hd())
     k, v = enc_kv
     o = ops.attention(q, k, v, causal=False, window=0, impl=impl)
-    return dense(p["wo"], o.reshape(b, s, cfg.q_dim()))
+    return dense(p["wo"], merge_heads(o))
 
 
 def cross_kv(p: Params, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross attention's k, v (B, Se, KVH, hd) of the encoder output (B, Se, D)."""
-    b, se, _ = enc_out.shape
-    k = dense(p["wk"], enc_out).reshape(b, se, cfg.num_kv_heads, cfg.hd())
-    v = dense(p["wv"], enc_out).reshape(b, se, cfg.num_kv_heads, cfg.hd())
+    k = split_heads(dense(p["wk"], enc_out), cfg.num_kv_heads, cfg.hd())
+    v = split_heads(dense(p["wv"], enc_out), cfg.num_kv_heads, cfg.hd())
     return k, v
 
 
@@ -137,8 +132,12 @@ def cross_kv(p: Params, cfg, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch
 # ---------------------------------------------------------------------------
 
 def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
-    """Write (B, KVH, hd) ``new`` at the batch's one synchronized slot, in place."""
-    cache[:, slot] = new
+    """Write (B, KVH, hd) ``new`` at the batch's one synchronized slot, in
+    place; under a mesh, into the shard of the sequence dim that holds it."""
+    if is_dtensor(cache):
+        write_at(cache, new, 1, slot)
+    else:
+        cache[:, slot] = new
 
 
 def _cache_write_prefill(cache: Dict[str, Any], k, v, s: int) -> Dict[str, Any]:
@@ -149,10 +148,13 @@ def _cache_write_prefill(cache: Dict[str, Any], k, v, s: int) -> Dict[str, Any]:
     sits at slot p % L, where a rolling decode would write it.
     """
     cache_len = cache["k"].shape[1]
+    shift = s % cache_len
     for name, new in (("k", k), ("v", v)):
         buf = cache[name]
         if s >= cache_len:
-            buf.copy_(torch.roll(new[:, -cache_len:], shifts=s % cache_len, dims=1))
+            # torch.roll by slices (DTensor has no rule for roll in every torch)
+            last = new[:, -cache_len:]
+            buf.copy_(torch.cat([last[:, -shift:], last[:, :-shift]], dim=1) if shift else last)
         else:
             buf[:, :s] = new
             buf[:, s:] = 0

@@ -22,12 +22,23 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # Param init
 # ---------------------------------------------------------------------------
 
+def trunc_normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> torch.Tensor:
+    """Fill ``w`` with N(0, std) cut at two std, in place. A fake tensor (shapes
+    only, ``FakeTensorMode``: ``configs.param_specs_struct``, the dry run) is
+    left as it is: it holds no values, and torch's rejection loop reads them."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if not is_fake(w):
+        torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+    return w
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
                bias: bool = False, scale: float = 1.0) -> Params:
     """Truncated-normal fan-in init: N(0, std) cut at two std, in fp32."""
     std = scale / (d_in ** 0.5)
-    w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+    w = trunc_normal_(torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device),
+                      std, gen)
     p: Params = {"w": w.to(dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)

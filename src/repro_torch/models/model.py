@@ -15,12 +15,13 @@ token per sequence against the caches that ``prefill`` returns.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import constrain_batch
+from ..distributed.sharding import constrain_batch, place_cache
 from . import encdec, transformer
 from .layers import DTYPES, Params, apply_norm, embed, embed_init, norm_init, unembed
 
@@ -107,6 +108,25 @@ def hidden_forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return apply_norm(p["final_norm"], x, cfg.norm), aux
 
 
+def init_cache(p: Params, cfg: ModelConfig, batch_size: int, cache_len: int,
+               enc_out: Optional[torch.Tensor] = None, *, device) -> List[Dict[str, Any]]:
+    """Empty decode caches for ``batch_size`` sequences of up to ``cache_len``
+    positions, one per layer: an encoder-decoder model's also hold the cross
+    attention's k, v of ``enc_out`` (its encoder output), computed once."""
+    if cfg.is_encoder_decoder:
+        if enc_out is None:
+            raise ValueError("init_cache: an encoder-decoder model's caches need enc_out")
+        return encdec.init_dec_cache(p, cfg, enc_out, batch_size, cache_len, DTYPES[cfg.dtype])
+    return transformer.init_cache(cfg, batch_size, cache_len, device=device)
+
+
+def _serving_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Serving strips training-only layout choices, as the reference's does:
+    sequence-parallel activations (``act_shard``) are for the train step. It
+    changes nothing un-meshed, where the constraints are the identity."""
+    return dataclasses.replace(cfg, act_shard="none") if cfg.act_shard != "none" else cfg
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, *,
             impl: str = "auto") -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """Run the prompt; return (last-position logits (B, 1, V), per-layer caches).
@@ -114,16 +134,19 @@ def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, Any], cache_len: int, 
     An encoder-decoder model returns the teacher-forced decoder's last logits
     with its self-attention caches empty (``pos`` 0), as the reference does:
     the first decode step then attends to itself alone, at learned position
-    ``S``. Only the cross attention's k, v are filled.
+    ``S``. Only the cross attention's k, v are filled. Under a mesh the caches
+    are placed as the decode step reads them (``sharding.place_cache``).
     """
+    cfg = _serving_cfg(cfg)
     if cfg.is_encoder_decoder:
         enc_out = _encode(p, cfg, batch, impl)
-        caches = encdec.init_dec_cache(p, cfg, enc_out, batch["tokens"].shape[0], cache_len,
-                                       DTYPES[cfg.dtype])
+        b = batch["tokens"].shape[0]
+        caches = place_cache(init_cache(p, cfg, b, cache_len, enc_out, device=enc_out.device),
+                             b)
         logits = encdec.decode_train(p, cfg, batch["tokens"], enc_out, impl=impl)
         return logits[:, -1:], caches
     x = _embed_inputs(p, cfg, batch)
-    caches = transformer.init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    caches = place_cache(init_cache(p, cfg, x.shape[0], cache_len, device=x.device), x.shape[0])
     x, caches = transformer.stack_prefill(p["stack"], cfg, x, _positions(cfg, batch), caches,
                                           impl=impl)
     return _logits(p, cfg, x[:, -1:]), caches
@@ -135,6 +158,7 @@ def decode_step(p: Params, cfg: ModelConfig, token: torch.Tensor, positions: tor
     """token (B, 1) int32; positions (B, 1), or (B, 1, 3) under M-RoPE (an
     encoder-decoder model reads the first stream). The KV caches are updated
     in place; a recurrent layer's state is replaced by the one returned."""
+    cfg = _serving_cfg(cfg)
     if cfg.is_encoder_decoder:
         pos = positions[..., 0] if positions.ndim == 3 else positions
         return encdec.decode_step(p, cfg, token, pos, cache, impl=impl)

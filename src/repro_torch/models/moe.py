@@ -36,9 +36,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from ..distributed import sharding as shd
-from .layers import DTYPES, Params, activation, dense_init
+from .layers import DTYPES, Params, activation, dense_init, trunc_normal_
 from .mlp import mlp_apply, mlp_init
 
 
@@ -51,9 +52,11 @@ def moe_init(gen: torch.Generator, cfg) -> Params:
         # one expert at a time, so that no fp32 copy of the whole stack is
         # made (arctic-480b's is 17.8 GB a layer)
         out = torch.empty(shape, dtype=dt, device=gen.device)
+        if is_fake(out):  # shapes only (``trunc_normal_``): nothing to draw
+            return out
         w = torch.empty(shape[1:], dtype=torch.float32, device=gen.device)
         for i in range(shape[0]):
-            torch.nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
+            trunc_normal_(w, 1.0, gen)
             out[i] = (w * std).to(dt) * scale
         return out
 

@@ -84,6 +84,18 @@ def _ffn(p: Params, cfg, x: torch.Tensor,
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+# the recurrent block kinds: parameter key, full-sequence and one-token functions
+_RECURRENT = {RECUR: ("recur", rglru_apply, rglru_decode),
+              MLSTM: ("mlstm", mlstm_apply, mlstm_decode),
+              SLSTM: ("slstm", slstm_apply, slstm_decode)}
+
+
+def _recurrence(fn: Callable, params: Params, h, *state):
+    """``fn(params, h, *state)``; over a mesh on each rank's batch rows
+    (``sharding.by_rows``): the recurrences have no DTensor rules."""
+    return by_rows(fn, params, h, *state) if is_dtensor(h) else fn(params, h, *state)
+
+
 def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Tensor, *,
                 impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / no-cache forward of one block. Returns (x, aux loss)."""
@@ -92,12 +104,8 @@ def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Ten
         x = x + attn.attn_apply(p["attn"], cfg, h, positions, causal=True,
                                 window=_layer_window(cfg, kind), impl=impl)
     else:
-        name, fn = {RECUR: ("recur", rglru_apply), MLSTM: ("mlstm", mlstm_apply),
-                    SLSTM: ("slstm", slstm_apply)}[kind]
-        if is_dtensor(h):  # the recurrences have no DTensor rules: each rank's rows
-            x = x + by_rows(lambda lp, lh: fn(lp, cfg, lh), p[name], h)
-        else:
-            x = x + fn(p[name], cfg, h)
+        name, fn, _ = _RECURRENT[kind]
+        x = x + _recurrence(lambda lp, lh: fn(lp, cfg, lh), p[name], h)
     x, aux = _ffn(p, cfg, x)
     if cfg.act_shard == "seq":
         x = constrain(x, ("pod", "data"), "model", None)
@@ -113,12 +121,14 @@ def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str =
     if kind == ATTN:
         y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
                                          window=_layer_window(cfg, kind), impl=impl)
-    elif kind == RECUR:
-        y, new_cache = rglru_apply(p["recur"], cfg, h, return_state=True)
-    elif kind == MLSTM:
-        y, new_cache = mlstm_apply(p["mlstm"], cfg, h, return_state=True)
+    elif kind == SLSTM:
+        y, new_cache = _recurrence(
+            lambda lp, lh, c: slstm_apply(lp, cfg, lh, state0=c, return_state=True),
+            p["slstm"], h, cache)
     else:
-        y, new_cache = slstm_apply(p["slstm"], cfg, h, state0=cache, return_state=True)
+        name, fn, _ = _RECURRENT[kind]
+        y, new_cache = _recurrence(lambda lp, lh: fn(lp, cfg, lh, return_state=True), p[name],
+                                   h)
     x, _ = _ffn(p, cfg, x + y)
     return constrain(x, ("pod", "data"), None, None), new_cache
 
@@ -129,12 +139,9 @@ def block_decode(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = 
     if kind == ATTN:
         y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
                                         window=_layer_window(cfg, kind), impl=impl)
-    elif kind == RECUR:
-        y, new_cache = rglru_decode(p["recur"], cfg, h, cache)
-    elif kind == MLSTM:
-        y, new_cache = mlstm_decode(p["mlstm"], cfg, h, cache)
     else:
-        y, new_cache = slstm_decode(p["slstm"], cfg, h, cache)
+        name, _, fn = _RECURRENT[kind]
+        y, new_cache = _recurrence(lambda lp, lh, c: fn(lp, cfg, lh, c), p[name], h, cache)
     x, _ = _ffn(p, cfg, x + y, capacity_factor=2.0)
     return x, new_cache
 

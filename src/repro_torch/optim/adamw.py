@@ -12,6 +12,17 @@ of the reference gives it. ``state.step`` then has that axis too, and each
 agent is clipped by its own gradient norm, over its own leaves: a norm over
 the whole stack would couple the agents through the clip. Stacked agents
 keep float32 moments.
+
+Over a mesh (parameters as DTensors) the int8 moments of a sharded leaf are
+quantized as the reference quantizes them on its global-view arrays: in
+blocks of 256 over the flattened *whole* leaf. A shard's slice of the
+flattened leaf seldom starts on a block boundary (a column shard is not a
+contiguous span at all), so each step gathers the leaf's moment
+(``full_tensor``), quantizes it whole, and keeps ``q`` and ``scale``
+replicated on every rank; reading dequantizes the whole leaf and keeps the
+rank's own slice. This costs one gather of each fp32 moment a step and a
+replicated int8 copy, and gives the same codes as the unsharded port, which
+``tests/test_torch_optim.py`` holds to the reference.
 """
 from __future__ import annotations
 
@@ -83,14 +94,36 @@ def _weak(c: float, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(c, dtype=x.dtype) * x
 
 
-def _moment_read(m, shape) -> torch.Tensor:
-    return _dequantize(m.q, m.scale, shape) if isinstance(m, _QTensor) else m
+def _moment_read(m, p: torch.Tensor) -> torch.Tensor:
+    """A moment's values, laid out as its parameter ``p``."""
+    if not isinstance(m, _QTensor):
+        return m
+    if not is_dtensor(p):
+        return _dequantize(m.q, m.scale, p.shape)
+    from torch.distributed.tensor import DTensor
+
+    whole = _dequantize(m.q.to_local(), m.scale.to_local(), p.shape)
+    mesh = p.device_mesh
+    return DTensor.from_local(whole, mesh, _replicated(mesh), run_check=False).redistribute(
+        mesh, p.placements)
+
+
+def _replicated(mesh):
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate()] * mesh.ndim
 
 
 def _moment_write(val: torch.Tensor, cfg: "AdamWConfig"):
-    if cfg.quantize_moments:
+    if not cfg.quantize_moments:
+        return val.to(MOMENT_DTYPES[cfg.moment_dtype])
+    if not is_dtensor(val):
         return _QTensor(*_quantize(val))
-    return val.to(MOMENT_DTYPES[cfg.moment_dtype])
+    from torch.distributed.tensor import DTensor
+
+    mesh = val.device_mesh
+    return _QTensor(*(DTensor.from_local(t, mesh, _replicated(mesh), run_check=False)
+                      for t in _quantize(val.full_tensor())))
 
 
 class OptState(NamedTuple):
@@ -104,8 +137,6 @@ def adamw_init(params: Params, cfg: AdamWConfig, lead: Tuple[int, ...] = ()) -> 
     ``step`` has those axes (the shape of the JAX package's vmapped init)."""
     if lead and (cfg.quantize_moments or cfg.moment_dtype != "float32"):
         raise ValueError("stacked agents keep float32 moments")
-    if cfg.quantize_moments and any(is_dtensor(p) for p in tree_leaves(params)):
-        raise NotImplementedError("int8 moments over sharded parameters: ROADMAP.md A.12.6")
     device = tree_leaves(params)[0].device
     zeros = lambda p: _moment_write(torch.zeros_like(p, dtype=torch.float32), cfg)
     return OptState(torch.zeros(lead, dtype=torch.int32, device=device),
@@ -152,8 +183,8 @@ def adamw_update(
 
     def upd(p, g, mu, nu):
         g = g.float() * per_agent(clip, p)
-        m = _weak(b1, _moment_read(mu, p.shape)) + (1 - b1) * g
-        v = _weak(b2, _moment_read(nu, p.shape)) + (1 - b2) * g * g
+        m = _weak(b1, _moment_read(mu, p)) + (1 - b1) * g
+        v = _weak(b2, _moment_read(nu, p)) + (1 - b2) * g * g
         mhat = m / per_agent(bc1, p)
         vhat = v / per_agent(bc2, p)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()

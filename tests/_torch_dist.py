@@ -102,7 +102,78 @@ def _mesh4(rank, world, workdir):
 
 
 WIDE_ARCHS = ("recurrentgemma-9b", "xlstm-125m", "whisper-base", "qwen2-vl-72b")
-JOBS = {"mesh4": _mesh4}
+
+
+def _int8_moments(rank, world, workdir):
+    """AdamW with int8 moments over parameters sharded on a (2, 2) mesh, from
+    the inputs the test ran in one process; then ``train_loop`` with them."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import _moment_read, adamw_init, adamw_update
+    from repro_torch.tree import tree_map
+
+    from torch.distributed.tensor import distribute_tensor
+
+    inputs = torch.load(os.path.join(workdir, "port_inputs.pt"), weights_only=False)["int8"]
+    cfg, opt = inputs["cfg"], inputs["opt"]
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+
+    def put(tree):  # every rank holds the same inputs: each keeps its shard, no collective
+        return tree_map(lambda t, pl: distribute_tensor(t, mesh, pl, src_data_rank=None), tree,
+                        shd.param_shardings(tree, mesh, cfg=cfg))
+
+    params = put(inputs["params"])
+    state = adamw_init(params, opt)
+    with shd.use_mesh(mesh):
+        for g in inputs["grads"]:
+            params, state, _ = adamw_update(put(g), state, params, opt)
+        moments = {k: tree_map(lambda p, m: _moment_read(m, p).full_tensor(), params,
+                               getattr(state, k)) for k in ("mu", "nu")}
+    out = {"params": tree_map(shd.full, params), **moments,
+           "losses": train_loop(arch="llama3.2-1b", steps=2, batch=4, seq=16, mesh=mesh,
+                                quantize_moments=True, log_every=100, device="cpu")["losses"]}
+    torch.save(out, os.path.join(workdir, f"int8_rank{rank}.pt"))
+
+
+def _seq_decode(rank, world, workdir):
+    """Decode with the cache sharded by sequence over a 2-wide "model" dim:
+    the plain decode attention, and two decode steps of a smoke model whose
+    slots fall on either rank."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as model_lib
+
+    inputs = torch.load(os.path.join(workdir, "port_inputs.pt"), weights_only=False)["decode"]
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    q, k, v, lengths = inputs["attention"]
+    rep, seq = [Replicate(), Replicate()], [Replicate(), Shard(1)]
+    with shd.use_mesh(mesh):
+        out = {"attention": ops.decode_attention(
+            distribute_tensor(q, mesh, rep), distribute_tensor(k, mesh, seq),
+            distribute_tensor(v, mesh, seq), lengths, impl="ref").full_tensor()}
+        cfg = inputs["cfg"]
+        params = shd.apply_shardings(inputs["params"], mesh, cfg=cfg)
+        cache = shd.place_cache(inputs["cache"], inputs["token"].shape[0])
+        out["placements"] = [tuple(cache[0]["k"].placements)]
+        logits = []
+        for token, positions in inputs["steps"]:
+            step_logits, cache = model_lib.decode_step(
+                params, cfg, distribute_tensor(token, mesh, rep),
+                distribute_tensor(positions, mesh, rep), cache, impl="ref")
+            logits.append(step_logits.full_tensor())
+        out["logits"] = logits
+        out["k"] = [c["k"].full_tensor() for c in cache]
+    torch.save(out, os.path.join(workdir, f"seqdecode_rank{rank}.pt"))
+
+
+JOBS = {"mesh4": _mesh4, "int8": _int8_moments, "seqdecode": _seq_decode}
 
 
 def _main(job, rank, world, workdir):

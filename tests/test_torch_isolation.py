@@ -37,6 +37,25 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert int(res.stdout.strip()) >= 54  # every module of the port was imported
 
 
+def test_importing_the_dry_run_starts_no_process_group():
+    """The dry run starts its fake world inside ``run_cells``: its import
+    starts no process group and sets no environment variable (the
+    reference's sets XLA_FLAGS at import)."""
+    pytest.importorskip("torch")
+    code = (
+        "import os\n"
+        "import torch.distributed as dist\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun\n"
+        "assert not dist.is_initialized()\n"
+        "assert dict(os.environ) == before\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py", "time_attention.py", "count_launches.py"])
 def test_card_scripts_exit_nonzero_without_a_card(script):
     """Without a CUDA device the scripts print no result and fail."""
