@@ -66,6 +66,15 @@ built on the card:
   ``[sweep]`` (a severity grid, then killed after two chunks and resumed
   from its journal); each run against the same spec on the host CPU.
 
+Last, ``[lint]`` runs the port's static analysis (``python -m
+repro_torch.lint --format json``, in a subprocess, over this checkout) and
+requires no finding, validates the D = 16 fleet built on the card and a
+crash trace moved to the card against their pytree schemas and bounds
+(``lint.validate`` / ``lint.validate_bounds``), and holds two identical fd
+days to one new engine key and then none (``lint.expect_compiles``), their
+hours run under CUDA's sync debug mode set to raise, the runtime witness
+of the purity pass.
+
 Phases print one line each; the second line from the end is the kernels'
 JSON record and the last line ``{"ok": true, "device": ...}``.
 
@@ -92,7 +101,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import faults as fault_mod  # noqa: E402
-from repro_torch import obs, scenarios  # noqa: E402
+from repro_torch import lint, obs, scenarios  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import ExperimentSpec, compare_techniques, run, sweep  # noqa: E402
@@ -809,6 +818,9 @@ def main() -> int:
 
     # -- 6. the scheduler path: fleet env, game, simulator ----------------
     sched_phases(dev)
+
+    # -- 7. the port's static analysis and its runtime checks --------------
+    lint_phase(dev)
 
     phase("done", seconds=f"{time.perf_counter() - T_START:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1710,6 +1722,82 @@ def crash_trace(env):
 
 
 FAULT_CASES = [(routed, policy) for routed in (False, True) for policy in fault_mod.POLICIES]
+
+LINT_TIMEOUT_S = 300
+LINT_DAY = ExperimentSpec(technique="fd", objective="cost_sla", hours=2)
+LINT_DCS = 4
+
+
+def lint_phase(dev: torch.device) -> None:
+    """``repro_torch.lint`` over this checkout (a subprocess, JSON out): no
+    finding; the schemas and bounds over the card's D = 16 fleet and a crash
+    trace moved to the card; two identical fd days dispatch under one new
+    engine key, then under none."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.lint", "--root", str(ROOT),
+                          "--format", "json"], cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=LINT_TIMEOUT_S)
+    try:
+        violations = json.loads(res.stdout)
+    except json.JSONDecodeError:
+        violations = None
+    if res.returncode != 0 or violations != []:
+        fail(f"repro_torch.lint exited {res.returncode}: {res.stdout[-2000:]} "
+             f"{res.stderr[-2000:]}")
+    static_s = time.perf_counter() - t0
+
+    env = priced_env(16, dev)
+    trace = tree_map(lambda x: x.to(dev), crash_trace(priced_env(16, "cpu")))
+    for tree in (env, trace):
+        if {x.device.type for x in tree} != {"cuda"}:
+            fail(f"lint: {type(tree).__name__} is not on the card")
+        lint.validate(tree)
+        lint.validate_bounds(tree)
+
+    day_env = priced_env(LINT_DCS, dev)
+    obs.reset_stats()  # the engine keys of earlier phases are seen already
+    hours, strict_hours = experiment._hours, []
+
+    def hours_without_sync(*args, **kwargs):
+        # the runtime witness of the purity pass: a host sync in the hour
+        # root raises under CUDA's sync debug mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = hours(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        strict_hours.append(args[0].hours)
+        return out
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        day_env.er.sum().item()
+        witness_raises = False
+    except RuntimeError:
+        witness_raises = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not witness_raises:
+        fail("lint: CUDA's sync debug mode let an .item() through; it witnesses nothing")
+    experiment._hours = hours_without_sync
+    try:
+        with lint.expect_compiles(1) as first:
+            a = run(LINT_DAY, day_env)
+        with lint.expect_compiles(0) as again:
+            b = run(LINT_DAY, day_env)
+    finally:
+        experiment._hours = hours
+    if a["totals"] != b["totals"] or again["hits"] != 1:
+        fail(f"lint: the repeated fd day differs ({a['totals']} vs {b['totals']}) "
+             f"or did not hit its key ({again})")
+    if strict_hours != [LINT_DAY.hours] * 2:
+        fail(f"lint: the fd days' hours did not all run under sync debug mode ({strict_hours})")
+    phase("lint", violations=len(violations), static_s=f"{static_s:.1f}",
+          validated="EnvParams(D=16) FaultTrace(D=16) on cuda",
+          expect_compiles=f"{first['misses']} then {again['misses']}",
+          hours_without_sync=sum(strict_hours),
+          seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
 
 
 def fault_spec(routed: bool, policy: str, engine: str = "scan") -> ExperimentSpec:

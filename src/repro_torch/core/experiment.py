@@ -55,6 +55,7 @@ the reference's ``_sharded_batch`` does over its devices (``_run_batched``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -105,10 +106,10 @@ class ExperimentSpec:
     engine: str = "scan"
     routed: bool = False
     hours: int = 24
-    days: Optional[int] = None
-    seed: int = 0
-    seeds: Optional[Tuple[int, ...]] = None
-    pretrain: bool = True
+    days: Optional[int] = None            # lint: runtime-only(month engine day count: how many times the one hour program runs, not which program)
+    seed: int = 0                         # lint: runtime-only(seeds the host torch.Generators the hour draws from; the hour's program is the same for every seed)
+    seeds: Optional[Tuple[int, ...]] = None  # lint: runtime-only(batched engine per-row generators: drawn on the host, stacked as vmapped inputs)
+    pretrain: bool = True                 # lint: runtime-only(selects the initial solver state passed in at run time; the hour's program is identical)
     cfg: Any = None                       # solver config (frozen dataclass)
     taps: Optional[Tuple[str, ...]] = None
     failover: str = FL.DEFAULT_POLICY
@@ -413,6 +414,18 @@ def _pad_rows(tree, n: int):
                     tree)
 
 
+def _batched_hour(spec: ExperimentSpec, compute: Callable, cfg, tau: int, keys: List[str],
+                  env, peak, state, draws, trace):
+    """One row's hour under the batched engine's ``vmap``: the technique's
+    device half (``compute``) on the row's draws, then ``_execute``.
+    ``keys`` receives the metric keys; returns (peak, state, metrics)."""
+    ctx = GameContext(env=env, tau=tau, objective=spec.objective, routed=spec.routed)
+    state, res = compute(draws, state, ctx, peak, cfg)
+    peak, m = _execute(spec, ctx, res.fractions, peak, trace)
+    keys[:] = list(m)
+    return peak, state, torch.stack(list(m.values()))
+
+
 def _run_batched(spec, envs, solver_state0, shard, faults=None, devices=None):
     """The batched engine: one ``vmap`` a hour over the rows. ``shard=True``
     splits the rows over ``devices`` (every local card by default), as the
@@ -464,14 +477,7 @@ def _run_batched(spec, envs, solver_state0, shard, faults=None, devices=None):
                                        routed=spec.routed)
                     draws = stack_draws([draw(g, ctx0, cfg, "cpu") for g in sgens], dev)
 
-                def hour(env, peak, state, draws, trace, tau=tau):
-                    ctx = GameContext(env=env, tau=tau, objective=spec.objective,
-                                      routed=spec.routed)
-                    state, res = compute(draws, state, ctx, peak, cfg)
-                    peak, m = _execute(spec, ctx, res.fractions, peak, trace)
-                    keys[:] = list(m)
-                    return peak, state, torch.stack(list(m.values()))
-
+                hour = functools.partial(_batched_hour, spec, compute, cfg, tau, keys)
                 # the rows' live taps leave the vmap as outputs, a row each
                 in_dims = (0, 0, state_dim, None if draws is None else 0,
                            0 if stacked else None)

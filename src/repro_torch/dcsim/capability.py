@@ -77,7 +77,7 @@ class CapabilityBundle(NamedTuple):
                                J/token, batch, chips per instance, bottleneck)
     ==============  =========  ====================================================
 
-    Machine-read unit table (repro.lint.units):
+    Machine-read unit table (repro_torch.lint.units):
 
         task_names: -
         er: task/h
@@ -158,7 +158,7 @@ class ServingProfile:
     """Workload *statistics* for one served model family (request shapes —
     not execution times; those are derived).
 
-    Machine-read unit table (repro.lint.units):
+    Machine-read unit table (repro_torch.lint.units):
 
         arch: -
         prompt_mean: token/task

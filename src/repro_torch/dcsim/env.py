@@ -69,7 +69,7 @@ class EnvParams(NamedTuple):
     """Everything the simulator knows about the fleet: float32 tensors on one
     device, with the field names, shapes and units of the JAX package's.
 
-    Machine-read unit table (repro.lint.units):
+    Machine-read unit table (repro_torch.lint.units):
 
         er: task/h
         it_idle: W

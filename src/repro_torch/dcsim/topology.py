@@ -143,7 +143,7 @@ NETWORK_PRICE = 0.085   # AWS CloudFront-shaped  # lint: unit(USD/GB)
 class AccelType:
     """One accelerator node type: per-chip roofline specs + node power.
 
-    Machine-read unit table (repro.lint.units):
+    Machine-read unit table (repro_torch.lint.units):
 
         name: -
         chips: chip/node

@@ -39,7 +39,9 @@ HOURS = 24
 
 class FaultTrace(NamedTuple):
     """Realized per-hour fault multipliers the executor applies to the
-    planning env.
+    planning env (shapes pinned in ``repro_torch.lint.pytrees.SCHEMAS``).
+
+    Machine-read unit table (repro_torch.lint.units):
 
         avail_mult: 1
         rtt_extra_ms: ms

@@ -151,7 +151,7 @@ def _matches(name: str, patterns: frozenset) -> bool:
 
 def enabled(name: str) -> bool:
     """Is the tap ``name`` live now?"""
-    return bool(_ACTIVE) and _matches(name, _ACTIVE)
+    return bool(_ACTIVE) and _matches(name, _ACTIVE)  # lint: host-ok(liveness is decided over the host-side set of active patterns, never over a tensor)
 
 
 def enable_taps(*patterns: str) -> None:
@@ -228,9 +228,9 @@ def tap(name: str, value: Any = None, *, thunk: Optional[Callable] = None) -> No
     if thunk is not None:
         value = thunk()
     if _COLLECT is not None:
-        _COLLECT.append((name, value))
+        _COLLECT.append((name, value))  # lint: host-ok(the vmap scope's list of live taps: a host list of references, read back as extra outputs of the vmapped call)
         return
-    _PENDING.append((_SINKS[-1], name, tree_map(_kept, value)))
+    _PENDING.append((_SINKS[-1], name, tree_map(_kept, value)))  # lint: host-ok(the sanctioned obs escape hatch: keeps a reference to the device value, no read-back; flush moves it after the run; parity tests pin taps-on == taps-off)
 
 
 def flush() -> None:
