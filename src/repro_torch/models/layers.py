@@ -13,6 +13,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
+
 Params = Dict[str, Any]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -81,18 +83,19 @@ def norm_init(d: int, kind: str, dtype, device) -> Params:
 def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm or LayerNorm (biased variance, the reference's eps for both),
     computed in fp32 and cast back to the input's dtype."""
-    xf = x.float()
-    if kind == "rmsnorm":
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps)
-    else:  # layernorm
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float()
-    if "bias" in p:
-        y = y + p["bias"].float()
-    return y.to(x.dtype)
+    with obs.span("norm"):
+        xf = x.float()
+        if kind == "rmsnorm":
+            var = torch.mean(xf * xf, dim=-1, keepdim=True)
+            y = xf * torch.rsqrt(var + eps)
+        else:  # layernorm
+            mu = torch.mean(xf, dim=-1, keepdim=True)
+            var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+            y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float()
+        if "bias" in p:
+            y = y + p["bias"].float()
+        return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

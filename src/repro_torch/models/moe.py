@@ -28,6 +28,10 @@ function of the rank and the size) and one all-reduce over "model" sums the
 ranks' outputs. The capacity is sized over ``e_pad``, as the reference's is,
 so where E does not divide the "model" size more pairs are dropped than in
 ``moe_apply`` (ROADMAP C.7). Un-meshed it is ``moe_apply``.
+
+Both forms open the spans ``moe.route``, ``moe.aux``, ``moe.dispatch``,
+``moe.experts``, ``moe.combine`` and ``moe.shared`` (``obs.span``, recorded
+inside ``obs.spans.recording()`` only) and emit the ``moe/dispatch`` tap.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from .. import obs
 from ..distributed import sharding as shd
 from .layers import DTYPES, Params, activation, dense_init, trunc_normal_
 from .mlp import mlp_apply, mlp_init
@@ -77,26 +82,29 @@ def moe_init(gen: torch.Generator, cfg) -> Params:
 
 def _route(p: Params, cfg, x2d: torch.Tensor):
     """Router: (weights (T, k), experts (T, k), probs (T, E))."""
-    probs = torch.softmax(x2d.float() @ p["router"]["w"], dim=-1)
-    weights, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1, sorted=True)
-    return weights / weights.sum(dim=-1, keepdim=True), sel, probs
+    with obs.span("moe.route"):
+        probs = torch.softmax(x2d.float() @ p["router"]["w"], dim=-1)
+        weights, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1, sorted=True)
+        return weights / weights.sum(dim=-1, keepdim=True), sel, probs
 
 
 def aux_load_balance(probs: torch.Tensor, sel: torch.Tensor, num_experts: int) -> torch.Tensor:
     """Switch-style load-balancing loss: E * sum_e f_e * P_e."""
-    onehot = F.one_hot(sel, num_experts).float()  # (T, k, E)
-    f_e = onehot.sum(dim=1).mean(dim=0)
-    p_e = probs.mean(dim=0)
-    return num_experts * torch.sum(f_e * p_e)
+    with obs.span("moe.aux"):
+        onehot = F.one_hot(sel, num_experts).float()  # (T, k, E)
+        f_e = onehot.sum(dim=1).mean(dim=0)
+        p_e = probs.mean(dim=0)
+        return num_experts * torch.sum(f_e * p_e)
 
 
 def _expert_ffn(experts: Params, cfg, h_in: torch.Tensor) -> torch.Tensor:
     """Batched per-expert gated FFN over (E, C, d)."""
-    act = activation(cfg.act)
-    up = torch.bmm(h_in, experts["w_in"]["w"])
-    gate = torch.bmm(h_in, experts["w_gate"]["w"])
-    h = shd.constrain(act(gate) * up, "model", None, None)
-    return torch.bmm(h, experts["w_out"]["w"])
+    with obs.span("moe.experts"):
+        act = activation(cfg.act)
+        up = torch.bmm(h_in, experts["w_in"]["w"])
+        gate = torch.bmm(h_in, experts["w_gate"]["w"])
+        h = shd.constrain(act(gate) * up, "model", None, None)
+        return torch.bmm(h, experts["w_out"]["w"])
 
 
 def _slots(sel: torch.Tensor, num_experts: int, cap: int):
@@ -113,6 +121,14 @@ def _slots(sel: torch.Tensor, num_experts: int, cap: int):
     return flat_sel, pos, pos < cap
 
 
+def _tap_dispatch(t: int, k: int, slots: int, keep: torch.Tensor) -> None:
+    """The ``moe/dispatch`` event: the layer call's tokens, its (token,
+    choice) pairs, its expert slots and the mask of the pairs kept in them.
+    The mask is kept as it is on its device (nothing is launched); kept and
+    dropped pairs are counted when the events move to the host."""
+    obs.tap("moe/dispatch", {"tokens": t, "routed": t * k, "slots": slots, "keep": keep})
+
+
 def moe_apply(p: Params, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
               impl: str = "gather") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (output (B, S, D), aux load-balance loss)."""
@@ -123,32 +139,34 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
     weights, sel, probs = _route(p, cfg, x2d)
     aux = aux_load_balance(probs, sel, e)
     cap = max(int(math.ceil(t * k * capacity_factor / e)), 1)
-    flat_sel, pos, keep = _slots(sel, e, cap)
-    wts = weights.to(x.dtype)
-
-    if impl == "einsum":
-        disp = (F.one_hot(flat_sel, e).to(x.dtype)[:, :, None]
-                * F.one_hot(torch.where(keep, pos, cap), cap + 1).to(x.dtype)[:, None, :cap]
-                ).reshape(t, k, e, cap)
-        expert_in = torch.einsum("tkec,td->ecd", disp, x2d)
-        expert_out = _expert_ffn(p["experts"], cfg, expert_in)
-        comb = disp * wts[:, :, None, None]
-        y2d = torch.einsum("tkec,ecd->td", comb, expert_out)
-    elif impl == "gather":
-        token_ids = torch.arange(t * k, device=x.device) // k
-        # slot_owner[e, c]: the token in that slot (t: the zero pad row); row
-        # e is the spare row the dropped pairs write to
-        slot_owner = torch.full((e + 1, cap), t, dtype=torch.int64, device=x.device)
-        slot_owner.index_put_((torch.where(keep, flat_sel, e), torch.where(keep, pos, 0)),
-                              token_ids)
-        x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-        expert_in = shd.constrain(x_pad[slot_owner[:e]], "model", None, None)  # (E, C, D)
-        expert_out = _expert_ffn(p["experts"], cfg, expert_in)
-        out_choice = expert_out[flat_sel, torch.where(keep, pos, 0)]  # (T k, D)
-        out_choice = torch.where(keep[:, None], out_choice, 0.0)
-        y2d = torch.sum(out_choice.reshape(t, k, d) * wts[:, :, None], dim=1)
-    else:
-        raise ValueError(f"moe impl {impl!r} not in ('gather', 'einsum')")
+    with obs.span("moe.dispatch"):
+        flat_sel, pos, keep = _slots(sel, e, cap)
+        if impl == "einsum":
+            disp = (F.one_hot(flat_sel, e).to(x.dtype)[:, :, None]
+                    * F.one_hot(torch.where(keep, pos, cap), cap + 1).to(x.dtype)[:, None, :cap]
+                    ).reshape(t, k, e, cap)
+            expert_in = torch.einsum("tkec,td->ecd", disp, x2d)
+        elif impl == "gather":
+            token_ids = torch.arange(t * k, device=x.device) // k
+            # slot_owner[e, c]: the token in that slot (t: the zero pad row);
+            # row e is the spare row the dropped pairs write to
+            slot_owner = torch.full((e + 1, cap), t, dtype=torch.int64, device=x.device)
+            slot_owner.index_put_((torch.where(keep, flat_sel, e), torch.where(keep, pos, 0)),
+                                  token_ids)
+            x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
+            expert_in = shd.constrain(x_pad[slot_owner[:e]], "model", None, None)  # (E, C, D)
+        else:
+            raise ValueError(f"moe impl {impl!r} not in ('gather', 'einsum')")
+    _tap_dispatch(t, k, e * cap, keep)
+    expert_out = _expert_ffn(p["experts"], cfg, expert_in)
+    with obs.span("moe.combine"):
+        wts = weights.to(x.dtype)
+        if impl == "einsum":
+            y2d = torch.einsum("tkec,ecd->td", disp * wts[:, :, None, None], expert_out)
+        else:
+            out_choice = expert_out[flat_sel, torch.where(keep, pos, 0)]  # (T k, D)
+            out_choice = torch.where(keep[:, None], out_choice, 0.0)
+            y2d = torch.sum(out_choice.reshape(t, k, d) * wts[:, :, None], dim=1)
 
     return _residuals(p, cfg, x, y2d.reshape(b, s, d)).to(x.dtype), aux
 
@@ -186,26 +204,31 @@ def ep_local(rw: torch.Tensor, experts: Params, cfg, x: torch.Tensor, lo: int, e
     t, k = b * s, cfg.num_experts_per_tok
     e_pad, e_loc = rw.shape[1], experts["w_in"]["w"].shape[0]
     x2 = x.reshape(t, d)
-    logits = x2.float() @ rw.float()
-    if e_pad != e:  # padded experts are unroutable
-        logits = torch.cat([logits[:, :e], torch.full_like(logits[:, e:], -1e9)], dim=1)
-    probs = torch.softmax(logits, dim=-1)
-    weights, sel = torch.topk(probs, k, dim=-1, sorted=True)
-    weights = weights / weights.sum(dim=-1, keepdim=True)
+    with obs.span("moe.route"):
+        logits = x2.float() @ rw.float()
+        if e_pad != e:  # padded experts are unroutable
+            logits = torch.cat([logits[:, :e], torch.full_like(logits[:, e:], -1e9)], dim=1)
+        probs = torch.softmax(logits, dim=-1)
+        weights, sel = torch.topk(probs, k, dim=-1, sorted=True)
+        weights = weights / weights.sum(dim=-1, keepdim=True)
     aux = aux_load_balance(probs[:, :e], torch.clamp(sel, max=e - 1), e)
 
-    flat_sel, pos, keep = _slots(sel, e_pad, cap)
-    mine = keep & (flat_sel >= lo) & (flat_sel < lo + e_loc)
-    local_e = flat_sel - lo
-    token_ids = torch.arange(t * k, device=x.device) // k
-    slot_owner = torch.full((e_loc + 1, cap), t, dtype=torch.int64, device=x.device)
-    slot_owner.index_put_((torch.where(mine, local_e, e_loc), torch.where(mine, pos, 0)),
-                          token_ids)
-    x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
-    expert_out = _expert_ffn(experts, cfg, x_pad[slot_owner[:e_loc]])  # (e_loc, C, D)
-    out_choice = expert_out[torch.where(mine, local_e, 0), torch.where(mine, pos, 0)]
-    out_choice = torch.where(mine[:, None], out_choice, 0.0)
-    y = torch.sum(out_choice.reshape(t, k, d) * weights.to(x.dtype)[:, :, None], dim=1)
+    with obs.span("moe.dispatch"):
+        flat_sel, pos, keep = _slots(sel, e_pad, cap)
+        mine = keep & (flat_sel >= lo) & (flat_sel < lo + e_loc)
+        local_e = flat_sel - lo
+        token_ids = torch.arange(t * k, device=x.device) // k
+        slot_owner = torch.full((e_loc + 1, cap), t, dtype=torch.int64, device=x.device)
+        slot_owner.index_put_((torch.where(mine, local_e, e_loc), torch.where(mine, pos, 0)),
+                              token_ids)
+        x_pad = torch.cat([x2, x2.new_zeros((1, d))], dim=0)
+        expert_in = x_pad[slot_owner[:e_loc]]  # (e_loc, C, D)
+    _tap_dispatch(t, k, e_loc * cap, mine)  # this rank's experts' slots and kept pairs
+    expert_out = _expert_ffn(experts, cfg, expert_in)
+    with obs.span("moe.combine"):
+        out_choice = expert_out[torch.where(mine, local_e, 0), torch.where(mine, pos, 0)]
+        out_choice = torch.where(mine[:, None], out_choice, 0.0)
+        y = torch.sum(out_choice.reshape(t, k, d) * weights.to(x.dtype)[:, :, None], dim=1)
     return y.reshape(b, s, d), aux
 
 
@@ -225,11 +248,12 @@ def ep_shard(p: Params, cfg, x: torch.Tensor, rank: int, size: int, *,
 
 
 def _residuals(p: Params, cfg, x, y):
-    if "shared" in p:
-        y = y + mlp_apply(p["shared"], cfg, x)
-    if "dense" in p:  # arctic's dense residual, beside the experts
-        y = y + mlp_apply(p["dense"], cfg, x)
-    return y
+    with obs.span("moe.shared"):
+        if "shared" in p:
+            y = y + mlp_apply(p["shared"], cfg, x)
+        if "dense" in p:  # arctic's dense residual, beside the experts
+            y = y + mlp_apply(p["dense"], cfg, x)
+        return y
 
 
 def moe_apply_ep(p: Params, cfg, x: torch.Tensor, *,

@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from ..configs.base import ATTN, MLSTM, RECUR, SLSTM
 from ..distributed.sharding import by_rows, constrain, is_dtensor
 from . import attention as attn
@@ -114,35 +115,45 @@ def block_apply(p: Params, cfg, kind: str, x: torch.Tensor, positions: torch.Ten
     return x, aux
 
 
+# the serving spans of a block's two halves: its mixer (by kind), then its FFN
+_MIXER_SPAN = {ATTN: "block.attn", RECUR: "block.recur", MLSTM: "block.mlstm",
+               SLSTM: "block.slstm"}
+
+
 def block_prefill(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
     """Forward that also fills this layer's decode cache. An sLSTM layer steps
     over the prompt from its state ``cache``, as the reference's scan does."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if kind == ATTN:
-        y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
-                                         window=_layer_window(cfg, kind), impl=impl)
-    elif kind == SLSTM:
-        y, new_cache = _recurrence(
-            lambda lp, lh, c: slstm_apply(lp, cfg, lh, state0=c, return_state=True),
-            p["slstm"], h, cache)
-    else:
-        name, fn, _ = _RECURRENT[kind]
-        y, new_cache = _recurrence(lambda lp, lh: fn(lp, cfg, lh, return_state=True), p[name],
-                                   h)
-    x, _ = _ffn(p, cfg, x + y)
+    with obs.span(_MIXER_SPAN[kind]):
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        if kind == ATTN:
+            y, new_cache = attn.attn_prefill(p["attn"], cfg, h, positions, cache, causal=True,
+                                             window=_layer_window(cfg, kind), impl=impl)
+        elif kind == SLSTM:
+            y, new_cache = _recurrence(
+                lambda lp, lh, c: slstm_apply(lp, cfg, lh, state0=c, return_state=True),
+                p["slstm"], h, cache)
+        else:
+            name, fn, _ = _RECURRENT[kind]
+            y, new_cache = _recurrence(lambda lp, lh: fn(lp, cfg, lh, return_state=True),
+                                       p[name], h)
+    with obs.span("block.ffn"):
+        x, _ = _ffn(p, cfg, x + y)
     return constrain(x, ("pod", "data"), None, None), new_cache
 
 
 def block_decode(p: Params, cfg, kind: str, x, positions, cache, *, impl: str = "auto"):
     """One-token step. x (B, 1, D)."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if kind == ATTN:
-        y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
-                                        window=_layer_window(cfg, kind), impl=impl)
-    else:
-        name, _, fn = _RECURRENT[kind]
-        y, new_cache = _recurrence(lambda lp, lh, c: fn(lp, cfg, lh, c), p[name], h, cache)
-    x, _ = _ffn(p, cfg, x + y, capacity_factor=2.0)
+    with obs.span(_MIXER_SPAN[kind]):
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        if kind == ATTN:
+            y, new_cache = attn.attn_decode(p["attn"], cfg, h, positions, cache,
+                                            window=_layer_window(cfg, kind), impl=impl)
+        else:
+            name, _, fn = _RECURRENT[kind]
+            y, new_cache = _recurrence(lambda lp, lh, c: fn(lp, cfg, lh, c), p[name], h,
+                                       cache)
+    with obs.span("block.ffn"):
+        x, _ = _ffn(p, cfg, x + y, capacity_factor=2.0)
     return x, new_cache
 
 

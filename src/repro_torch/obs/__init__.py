@@ -18,12 +18,18 @@ Three pieces; a tap that is off costs one Python check and launches nothing.
   ``gt_drl/round``          value, best, delta — per best-response round
   ``gt_drl/ppo``            player, actor_loss, mean_reward — per player
                             and PPO improve call
+  ``moe/dispatch``          tokens, routed (pairs), slots (experts x
+                            capacity), keep (each pair's kept mask) — per
+                            MoE layer call; the port's own, for serving
   ========================  ===================================================
 
 - **Spans** (``obs.spans``): per engine key dispatch counts and wall time
   (``obs.cache_stats()``; the port compiles nothing, see ``spans``),
-  ``obs.span(name)`` for ad-hoc regions, ``obs.profile(label)`` for
-  ``torch.profiler`` traces.
+  ``obs.span(name)`` for regions of the program, recorded inside
+  ``obs.spans.recording()`` only (the serving path's spans are listed in
+  ``launch/serve.py``; ``obs.spans.summary()`` sums them by name), and
+  ``obs.profile(label)`` for ``torch.profiler`` traces, which show the
+  recorded spans as ``repro_torch/<name>`` ranges.
 
 - **Records** (``obs.records`` / ``obs.report``): ``run(spec, envs,
   record=True)`` (also ``sweep`` and ``compare_techniques``) appends a

@@ -2,8 +2,18 @@
 
 The port of ``repro.obs.spans``. Three pieces:
 
-- ``span(name)``: a ``with``-able wall-clock span (``.seconds`` after
-  exit); ``note_bench`` records a benchmark row as a span.
+- ``span(name, **meta)``: a ``with``-able region of the program. Spans are
+  recorded only inside ``recording()`` (``enabled()`` says whether): off,
+  ``span`` returns one shared object that reads no clock, opens no range
+  and records nothing, so a span can sit on the serving path. On, a span
+  records its name, its host start and end (``perf_counter_ns``, no
+  synchronize: it measures the host's time, the card's work runs on
+  behind it), the span open around it (``parent``) and ``meta`` into a
+  bounded stream, and opens a ``torch.profiler`` range
+  ``repro_torch/<name>``: under a profiler the range sits on the
+  profiler's clock, and every operation the host launches inside it is
+  correlated to it. ``summary()`` gives calls, host seconds and self host
+  seconds per name; ``note_bench`` records a benchmark row as a span.
 - engine accounting. ``core.experiment.run`` wraps every engine dispatch in
   ``dispatch(key)``: it pins the tap set to the key's (``tap.tracing``),
   times the call, and moves the run's tap values to the host before it
@@ -33,39 +43,117 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from . import tap as _tap
 
-SPAN_CAPACITY = 4096
+# two traced batches of a 24-layer MoE server (~3,500 spans a batch) fit
+SPAN_CAPACITY = 65536
+RANGE_PREFIX = "repro_torch/"  # the profiler range of span "x" is "repro_torch/x"
 
 
-@dataclasses.dataclass
 class Span:
-    """One timed region. ``seconds`` is set when the region exits."""
-    name: str
-    seconds: float = 0.0
-    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    _t0: float = dataclasses.field(default=0.0, repr=False)
+    """One timed region: ``seconds`` (and the host clock's ``start_ns`` and
+    ``end_ns``) are set when it exits; ``parent`` is the span that was open
+    around it. Spans nest by the order they are entered, so they are
+    recorded from one thread at a time (the serving path has one)."""
+
+    __slots__ = ("name", "seconds", "meta", "start_ns", "end_ns", "parent", "_range")
+
+    def __init__(self, name: str, seconds: float = 0.0,
+                 meta: Optional[Dict[str, Any]] = None):
+        self.name, self.seconds, self.meta = name, seconds, {} if meta is None else meta
+        self.start_ns = self.end_ns = 0
+        self.parent: Optional[Span] = None
+        self._range = None
+
+    def __repr__(self) -> str:
+        return f"Span(name={self.name!r}, seconds={self.seconds!r}, meta={self.meta!r})"
 
     def __enter__(self) -> "Span":
-        self._t0 = time.perf_counter()
+        global _OPEN
+        self.parent, _OPEN = _OPEN, self
+        # the profiler's range, on its clock (the C++ context manager: a
+        # Python ``record_function`` costs the host ~8 us more a span)
+        self._range = torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + self.name)
+        self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> None:
-        self.seconds = time.perf_counter() - self._t0
+        global _OPEN
+        self.end_ns = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        self._range = None
+        _OPEN = self.parent
+        self.seconds = (self.end_ns - self.start_ns) / 1e9
         _SPANS.append(self)
 
 
+class _Off:
+    """What ``span`` returns while not recording."""
+    __slots__ = ()
+    seconds = 0.0
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_OFF = _Off()
 _SPANS: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+_RECORDING = False
+_OPEN: Optional[Span] = None  # the innermost open span
 
 
-def span(name: str, **meta) -> Span:
-    """``with obs.span("phase") as s: ...``, then read ``s.seconds``."""
-    return Span(name=name, meta=meta)
+@contextmanager
+def recording():
+    """Record spans inside the block (see the module docstring)."""
+    global _RECORDING
+    prev, _RECORDING = _RECORDING, True
+    try:
+        yield
+    finally:
+        _RECORDING = prev
+
+
+def enabled() -> bool:
+    """Whether spans are being recorded."""
+    return _RECORDING
+
+
+def span(name: str, **meta):
+    """``with obs.span("phase") as s: ...``, then read ``s.seconds``; inside
+    ``recording()`` only (else the shared no-op, whose ``seconds`` is 0)."""
+    if not _RECORDING:
+        return _OFF
+    return Span(name, meta=meta)
 
 
 def spans(name: Optional[str] = None) -> List[Span]:
     out = list(_SPANS)
     return out if name is None else [s for s in out if s.name == name]
+
+
+def summary(recorded: Optional[List[Span]] = None) -> Dict[str, Dict[str, float]]:
+    """Per span name over the recorded spans (or ``recorded``, a part of
+    them that holds each span's children): ``calls``, ``host_s`` (their
+    seconds) and ``self_s`` (their seconds less what their child spans
+    cover): where the host's time went, without a profiler."""
+    recorded = list(_SPANS) if recorded is None else recorded
+    covered: Dict[int, float] = collections.defaultdict(float)
+    for s in recorded:
+        if s.parent is not None:
+            covered[id(s.parent)] += s.seconds
+    out: Dict[str, Dict[str, float]] = {}
+    for s in recorded:
+        row = out.setdefault(s.name, {"calls": 0, "host_s": 0.0, "self_s": 0.0})
+        row["calls"] += 1
+        row["host_s"] += s.seconds
+        row["self_s"] += s.seconds - covered[id(s)]
+    return out
 
 
 def note_bench(name: str, seconds: float, derived: str = "") -> None:
@@ -195,8 +283,7 @@ def profile(label: str = "trace", logdir: str = "runs/profiles"):
     """A ``torch.profiler`` trace of the block (host operators, and the
     card's kernels where a card is present), written as Chrome trace JSON to
     ``<logdir>/<label>/trace.json`` (Perfetto reads it). Yields the trace
-    directory."""
-    import torch
+    directory; the spans recorded inside it are its ranges."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as _profile
 

@@ -51,12 +51,14 @@ from ..tree import tree_leaves, tree_map, tree_unflatten
 DEFAULT_CAPACITY = 65536
 
 #: The tap registry: every name passed to ``tap(...)`` in the port is
-#: declared here (tests/test_torch_obs.py checks the sources).
+#: declared here (tests/test_torch_obs.py checks the sources). The first
+#: four are the reference's; ``moe/dispatch`` is the serving path's own.
 KNOWN_TAPS = (
     "engine/hour",          # experiment engines: per-hour metrics
     "game/nash_residual",   # game loop: best-reply residual probe
     "gt_drl/ppo",           # GT-DRL: per-player PPO actor loss and reward
     "gt_drl/round",         # GT-DRL: per-round best-response telemetry
+    "moe/dispatch",         # MoE layer: tokens, pairs, slots, kept pairs (the port's own)
 )
 
 
@@ -212,7 +214,9 @@ def capture(*patterns: str, capacity: int = DEFAULT_CAPACITY):
 
 
 def _kept(x):
-    return x.detach() if isinstance(x, torch.Tensor) else x
+    """``x`` cut from autograd; a tensor that needs no gradient is kept as it
+    is, so that a live tap dispatches no operator."""
+    return x.detach() if isinstance(x, torch.Tensor) and x.requires_grad else x
 
 
 def tap(name: str, value: Any = None, *, thunk: Optional[Callable] = None) -> None:

@@ -25,6 +25,7 @@ package.
 """
 # ruff: noqa: E402
 import collections
+import math
 import os
 import re
 from pathlib import Path
@@ -230,7 +231,7 @@ def test_ambient_taps_context_drives_spec_default():
 # ---------------------------------------------------------------------------
 
 def test_span_records_wall_time_into_the_stream():
-    with obs.span("test/region", tag=1) as s:
+    with obs.spans.recording(), obs.span("test/region", tag=1) as s:
         sum(range(1000))
     assert s.seconds > 0.0
     got = obs.all_spans("test/region")
@@ -243,6 +244,178 @@ def test_bench_row_is_an_obs_span():
     obs.note_bench("test/bench_row", 0.5, "derived=1")
     bench = [s for s in obs.all_spans("test/bench_row") if s.meta.get("kind") == "bench"]
     assert bench and bench[-1].seconds == 0.5 and bench[-1].meta["derived"] == "derived=1"
+
+
+def test_span_off_is_one_shared_no_op_that_records_nothing():
+    assert not obs.spans.enabled()
+    before = len(obs.all_spans())
+    a, b = obs.span("test/off"), obs.span("test/other", tag=2)
+    assert a is b and not isinstance(a, obs.Span)
+    with a as s:
+        sum(range(10))
+    assert s.seconds == 0.0 and len(obs.all_spans()) == before
+    with obs.spans.recording():
+        assert obs.spans.enabled()
+    assert not obs.spans.enabled()
+
+
+def test_span_summary_self_time_leaves_out_the_children():
+    obs.reset_stats()
+    with obs.spans.recording():
+        with obs.span("test/outer") as outer:
+            for _ in range(2):
+                with obs.span("test/inner"):
+                    sum(range(1000))
+    inner = obs.all_spans("test/inner")
+    assert [s.parent for s in inner] == [outer, outer] and outer.parent is None
+    got = obs.spans.summary()
+    assert got["test/inner"]["calls"] == 2 and got["test/outer"]["calls"] == 1
+    assert got["test/outer"]["host_s"] == outer.seconds
+    assert got["test/outer"]["self_s"] == pytest.approx(
+        outer.seconds - sum(s.seconds for s in inner), abs=1e-12)
+    assert got["test/inner"]["self_s"] == got["test/inner"]["host_s"]
+
+
+# ---------------------------------------------------------------------------
+# the serving path's spans and the moe/dispatch tap
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("qwen2-7b", "qwen2-moe-a2.7b")
+LENS, MAX_NEW = (12, 9, 5), (4, 2, 4)  # ragged prompts and answers: 4 passes a batch
+
+
+def _server(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ModelServer
+
+    return ModelServer(get_config(arch).smoke(), batch_size=3, cache_len=32, seed=1,
+                       device="cpu")
+
+
+def _requests(cfg):
+    from repro_torch.launch.serve import Request
+
+    g = torch.Generator().manual_seed(0)
+    return [Request(10 + i, torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                                          dtype=torch.int32), m)
+            for i, (n, m) in enumerate(zip(LENS, MAX_NEW))]
+
+
+def _profiled_names(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [e.name for e in prof.events()]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_generate_is_bit_equal_with_spans_and_taps_on_or_off(arch):
+    """Off, ``generate`` opens no ``repro_torch/`` profiler range; recording
+    spans and the ``moe/dispatch`` tap changes no output token."""
+    srv = _server(arch)
+    reqs = _requests(srv.cfg)
+    off, names = _profiled_names(lambda: srv.generate(reqs))
+    assert not [n for n in names if n.startswith(obs.spans.RANGE_PREFIX)]
+    obs.reset_stats()
+    with obs.spans.recording(), obs.capture("moe/dispatch") as buf:
+        on, names = _profiled_names(lambda: srv.generate(reqs))
+    assert on == off
+    assert {n for n in names if n.startswith(obs.spans.RANGE_PREFIX)} == {
+        obs.spans.RANGE_PREFIX + s.name for s in obs.all_spans()}
+    assert len(buf.by_name("moe/dispatch")) == (
+        srv.cfg.num_layers * max(MAX_NEW) if srv.cfg.num_experts else 0)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_spans_nest_under_generate_with_their_call_counts(arch):
+    srv = _server(arch)
+    reqs = _requests(srv.cfg)
+    srv.generate(reqs)  # the server's call 0
+    obs.reset_stats()
+    with obs.spans.recording():
+        srv.generate(reqs)
+    layers, passes = srv.cfg.num_layers, max(MAX_NEW)  # the prefill, then 3 decode steps
+    want = {"serve.generate": 1, "serve.batchify": 1, "serve.prefill": 1,
+            "serve.readback": passes, "serve.decode": passes - 1,
+            "block.attn": layers * passes, "block.ffn": layers * passes,
+            "norm": (2 * layers + 1) * passes, "rope": layers * passes}
+    parents = {"serve.generate": {None}, "serve.batchify": {"serve.generate"},
+               "serve.prefill": {"serve.generate"}, "serve.readback": {"serve.generate"},
+               "serve.decode": {"serve.generate"},
+               "block.attn": {"serve.prefill", "serve.decode"},
+               "block.ffn": {"serve.prefill", "serve.decode"},
+               "norm": {"block.attn", "block.ffn", "serve.prefill", "serve.decode"},
+               "rope": {"block.attn"}}
+    if srv.cfg.num_experts:
+        for name in ("moe.route", "moe.aux", "moe.dispatch", "moe.experts", "moe.combine",
+                     "moe.shared"):
+            want[name], parents[name] = layers * passes, {"block.ffn"}
+    recorded = obs.all_spans()
+    assert collections.Counter(s.name for s in recorded) == want
+    root = next(s for s in recorded if s.name == "serve.generate")
+    assert root.meta == {"call": 1, "uids": (10, 11, 12)}
+    for s in recorded:
+        assert (s.parent.name if s.parent else None) in parents[s.name], s.name
+        while s.parent is not None:
+            s = s.parent
+        assert s is root
+    got = obs.spans.summary()
+    assert {n: r["calls"] for n, r in got.items()} == want
+    assert all(0 <= r["self_s"] <= r["host_s"] for r in got.values())
+
+
+def _moe_overloaded():
+    """qwen2-moe's smoke layer (fp32) with a router that sends every token
+    to expert 0 first: expert 0's slots overflow, so pairs are dropped."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").smoke(), dtype="float32",
+                              param_dtype="float32")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    p["router"]["w"][:, 0] += 4.0
+    x = torch.rand((2, 9, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    return cfg, p, x
+
+
+def _recount(sel, e, cap):
+    """Kept pairs by a host loop over (token, choice) pairs in order."""
+    used, keep = collections.Counter(), []
+    for ex in sel.reshape(-1).tolist():
+        keep.append(used[ex] < cap)
+        used[ex] += 1
+    return np.asarray(keep)
+
+
+def test_moe_dispatch_tap_equals_a_host_recount_and_adds_no_operator():
+    from repro_torch.models import moe
+
+    cfg, p, x = _moe_overloaded()
+    t, k, e = x.shape[0] * x.shape[1], cfg.num_experts_per_tok, cfg.num_experts
+    cap = math.ceil(t * k * 1.25 / e)
+    _, sel, _ = moe._route(p, cfg, x.reshape(t, -1))
+    keep = _recount(sel, e, cap)
+    assert not keep.all()  # the router overloads expert 0
+    (y_off, _), ops_off = _profiled_names(lambda: moe.moe_apply(p, cfg, x))
+    with obs.capture("moe/dispatch") as buf:
+        (y_on, _), ops_on = _profiled_names(lambda: moe.moe_apply(p, cfg, x))
+    assert torch.equal(y_on, y_off) and ops_on == ops_off
+    (ev,) = buf.by_name("moe/dispatch")
+    assert (int(ev["tokens"]), int(ev["routed"]), int(ev["slots"])) == (t, t * k, e * cap)
+    np.testing.assert_array_equal(ev["keep"], keep)
+
+    # expert-parallel: each rank's event counts the pairs kept on its experts
+    size = 2
+    e_pad, e_loc, cap_ep = moe.ep_layout(e, size, t, k, 1.25)
+    keep_ep = _recount(sel, e_pad, cap_ep)
+    with obs.capture("moe/dispatch") as buf:
+        for rank in range(size):
+            moe.ep_shard(p, cfg, x, rank, size)
+    evs = buf.by_name("moe/dispatch")
+    assert [int(v["slots"]) for v in evs] == [e_loc * cap_ep] * size
+    assert sum(int(v["keep"].sum()) for v in evs) == int(keep_ep.sum())
+    assert all(int(v["routed"]) == t * k for v in evs)
 
 
 def test_cache_stats_dispatch_accounting():
@@ -404,7 +577,9 @@ def test_every_tap_name_in_the_port_is_registered():
         names |= set(re.findall(r"""\benabled\(\s*["']([^"']+)["']""", path.read_text()))
     assert names, "no tap site found"
     assert names <= set(obs.KNOWN_TAPS), names - set(obs.KNOWN_TAPS)
-    assert set(obs.KNOWN_TAPS) == set(jobs.KNOWN_TAPS)
+    # the reference's taps, and the serving path's own
+    assert set(obs.KNOWN_TAPS) - set(jobs.KNOWN_TAPS) == {"moe/dispatch"}
+    assert set(jobs.KNOWN_TAPS) <= set(obs.KNOWN_TAPS)
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,17 @@ def test_model_server_greedy_matches_forward():
     assert srv.tokens_per_second() > 0
 
 
+def test_stats_count_each_requests_delivered_tokens():
+    """``stats["tokens"]`` counts what each request was served (its own
+    ``max_new``), not the batch's padded ``b x max(max_new)``."""
+    cfg = get_config(ARCH).smoke()
+    srv = ModelServer(cfg, batch_size=3, cache_len=32, seed=5, device="cpu")
+    outs = srv.generate([Request(i, torch.arange(3, 3 + n, dtype=torch.int32), m)
+                         for i, (n, m) in enumerate([(8, 4), (5, 1), (6, 2)])])
+    assert [len(outs[i]) for i in range(3)] == [4, 1, 2]
+    assert srv.stats["tokens"] == 7 and srv.stats["requests"] == 3
+
+
 @pytest.mark.parametrize("ar,want", [([[10.0, 0.0]], (0, 0)), ([[0.0, 10.0]], (0, 1))])
 def test_fleet_routes_by_assignment(ar, want):
     fleet = Fleet([ARCH], 2, smoke=True, batch_size=2, cache_len=32, device="cpu")
