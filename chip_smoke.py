@@ -8,8 +8,10 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
 PyTorch version on the card (head dim 16 in fp32 too, 256 in both dtypes,
 whisper-base's non-causal shapes), times both (at llama3.2-1b's and
 recurrentgemma-9b's shapes, and at whisper-base's, qwen2-vl-72b's and
-arctic-480b's), then serves llama3.2-1b at full width (16 layers, d_model
-2048, bf16, random weights from seed 0) through ``ModelServer.generate`` and
+arctic-480b's; the RoPE kernel ``csrc/rope.cu`` bit for bit, and timed at the
+benchmark cells' prefill and decode shapes), then serves llama3.2-1b at full
+width (16 layers, d_model 2048, bf16, random weights from seed 0) through
+``ModelServer.generate`` and
 a two-data-center ``Fleet``, and checks that the serving path went through
 both kernels and that its logits and tokens are sane; ``[fleet-smoke]``
 serves the default ``Fleet`` (``cfg.smoke()``, head dim 16) of llama3.2-1b
@@ -114,6 +116,8 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import flash_vjp  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rope as rope_mod  # noqa: E402
 from repro_torch.kernels.ops import kv_heads_of_shard  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.configs.base import ATTN  # noqa: E402
@@ -256,6 +260,67 @@ VISION_GRID = 32  # qwen2-vl's stub patches: a 32 x 32 grid leads its prompt
 # the reference's examples/serve_fleet.py: GT-DRL's split over build_env(4)
 # dispatched to a dense, an MoE and a hybrid arch (smoke widths) x 2 DCs
 FLEET_ARCHS = ["llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-9b"]
+# RoPE (b, s, h, kvh, d, lowest position, past the highest): the benchmark
+# cells' prefill (positions 0 .. 1,499, as ModelServer gives them, one row
+# expanded over the batch) and decode (one token a row at 1,500 .. 1,512),
+# then other head dims at positions drawn up to 131,071: 64, recurrentgemma's
+# MQA at 256, the smoke configs' 16, and 10 (16-byte loads do not fit a half)
+ROPE_THETA = 1e6  # qwen2's
+ROPE_SERVE_CASES = [
+    (64, 1500, 28, 4, 128, 0, 1500),    # qwen2-7b.rag prefill
+    (64, 1, 28, 4, 128, 1500, 1513),    # qwen2-7b.rag decode
+    (64, 1500, 16, 16, 128, 0, 1500),   # qwen2-moe-a2.7b.rag prefill
+    (64, 1, 16, 16, 128, 1500, 1513),   # qwen2-moe-a2.7b.rag decode
+]
+ROPE_CASES = ROPE_SERVE_CASES + [
+    (2, 37, 8, 2, 64, 0, 131072),
+    (3, 1, 8, 2, 64, 0, 131072),
+    (2, 37, 16, 1, 256, 0, 131072),
+    (2, 37, 4, 2, 16, 0, 131072),
+    (2, 5, 3, 1, 10, 0, 131072),
+]
+
+
+def rope_positions(b: int, s: int, lo: int, hi: int, device, gen=None) -> torch.Tensor:
+    """(b, s) int32 positions: ``lo .. hi - 1`` expanded over the batch where
+    they are a prompt's (``hi - lo == s > 1``), else drawn in ``[lo, hi)``."""
+    if s > 1 and hi - lo == s:
+        return torch.arange(lo, hi, dtype=torch.int32, device=device)[None].expand(b, s)
+    return torch.randint(lo, hi, (b, s), generator=gen, device=device, dtype=torch.int32)
+
+
+def rope_rows(randn, records: dict) -> None:
+    """[kernel] rows of the RoPE kernel at ``ROPE_SERVE_CASES`` in bf16: its
+    output bit-equal to the plain version's (``ops.rope(impl="ref")``), kernel
+    and plain ms, the bound (q and k read and written once, and the
+    positions read, at 3.35 TB/s; the rotation's fp32 products at 67
+    TFLOP/s). No PyTorch call computes RoPE, so there is no library time."""
+    bf16 = torch.bfloat16
+    for b, s, h, kvh, d, lo, hi in ROPE_SERVE_CASES:
+        q, k = randn(b, s, h, d, dtype=bf16), randn(b, s, kvh, d, dtype=bf16)
+        pos = rope_positions(b, s, lo, hi, q.device)
+        kernel = lambda: rope_mod.rope_fwd(q, k, pos, ROPE_THETA)
+        plain = lambda: ops.rope(q, k, pos, ROPE_THETA, impl="ref")
+        got, want = kernel(), plain()
+        unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+        if unequal:
+            fail(f"rope at q{tuple(q.shape)} k{tuple(k.shape)}: {unequal} elements differ "
+                 "from the plain version")
+        elems = q.numel() + k.numel()
+        nbytes = 2 * elems * q.element_size() + 4 * b * s
+        flops = 3 * elems
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+        launches = rope_mod.KERNEL.launches
+        rec = dict(shape=f"q{tuple(q.shape)} k{tuple(k.shape)} positions {lo}..{hi - 1} bf16",
+                   unequal_elements=unequal, ms=time_ms(kernel, iters=100 if s == 1 else 20),
+                   plain_ms=time_ms(plain, iters=20 if s == 1 else 5),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms="none")
+        rec["launches_a_call"] = 1 if rope_mod.KERNEL.launches > launches else 0
+        records["rope"].setdefault("rows", []).append(rec)
+        phase("kernel", name="rope", bytes=nbytes, flops=flops, **rec)
+        del q, k, got, want
+
+
 # fp32: summation order only; bf16: one rounding of O(1) outputs (2^-8) plus order
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -595,7 +660,8 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- 2. build ---------------------------------------------------------
-    sources = [flash_mod.KERNEL.source, flash_mod.BWD_KERNEL.source, dec_mod.KERNEL.source]
+    sources = [flash_mod.KERNEL.source, flash_mod.BWD_KERNEL.source, dec_mod.KERNEL.source,
+               rope_mod.KERNEL.source]
     t0 = time.perf_counter()
     seconds = _build.build(sources)
     phase("build", wall_s=f"{time.perf_counter() - t0:.1f}",
@@ -744,6 +810,11 @@ def main() -> int:
     kernels_at_d256(randn, records, flush)
     del flush
     kernels_at_new_shapes(randn, records)
+    records["rope"] = dict(name="rope", route="cuda",
+                           source="src/repro_torch/kernels/csrc/rope.cu",
+                           replaces="none (jnp in src/repro/models/layers.py apply_rope)",
+                           launches_by_path={})
+    rope_rows(randn, records)
     kernel_bwd_phase(randn, records)
     mesh_shards_phase(randn)
 
@@ -760,12 +831,12 @@ def main() -> int:
     srv.generate([Request(0, prompts[0], 2)])  # warm-up: library handles, allocator
     srv.stats = {"requests": 0, "tokens": 0, "decode_s": 0.0, "prefill_s": 0.0}
     torch.cuda.reset_peak_memory_stats()
-    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = rope_mod.KERNEL.launches = 0
     outs = srv.generate(reqs)
     launches = {"flash_attention": flash_mod.KERNEL.launches,
-                "decode_attention": dec_mod.KERNEL.launches}
+                "decode_attention": dec_mod.KERNEL.launches, "rope": rope_mod.KERNEL.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * (MAX_NEW - 1)}
+    want = serve_launches(cfg, MAX_NEW)
     if launches != want:
         fail(f"serving launches {launches}, expected {want}")
     for uid, toks in outs.items():
@@ -1064,13 +1135,15 @@ def serve_launches(cfg, new: int) -> dict:
     launch per attention layer and step. An encoder-decoder: the encoder's
     layers and the decoder's self and cross attention at prefill, then a
     decode launch (self) and a one-row flash launch (cross) per decoder layer
-    and step."""
+    and step. RoPE (``rope_mode`` "rope" only): one launch per attention
+    layer at prefill and at each step."""
     steps = new - 1
     if cfg.is_encoder_decoder:
         return {"flash_attention": cfg.num_encoder_layers + 2 * cfg.num_layers
-                + cfg.num_layers * steps, "decode_attention": cfg.num_layers * steps}
+                + cfg.num_layers * steps, "decode_attention": cfg.num_layers * steps, "rope": 0}
     n_attn = attn_layers(cfg)
-    return {"flash_attention": n_attn, "decode_attention": n_attn * steps}
+    return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
+            "rope": n_attn * new if cfg.rope_mode == "rope" else 0}
 
 
 def logit_batch(cfg, batch, prompt: int, rng) -> dict:
@@ -1117,10 +1190,10 @@ def serve_arch_phase(dev: torch.device, records: dict) -> None:
         srv.generate([Request(0, prompts[0], 2)])  # warm-up
         srv.stats = {"requests": 0, "tokens": 0, "decode_s": 0.0, "prefill_s": 0.0}
         torch.cuda.reset_peak_memory_stats()
-        flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+        flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = rope_mod.KERNEL.launches = 0
         outs = srv.generate(reqs)
         launches = {"flash_attention": flash_mod.KERNEL.launches,
-                    "decode_attention": dec_mod.KERNEL.launches}
+                    "decode_attention": dec_mod.KERNEL.launches, "rope": rope_mod.KERNEL.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         want = serve_launches(cfg, case.new)
         if launches != want:
@@ -1260,13 +1333,14 @@ def fleet_smoke_phase(dev: torch.device, arch: str = ARCH) -> None:
     fleet = Fleet([arch], 2)
     srv = fleet.servers[(0, 0)]
     cfg = srv.cfg
-    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = 0
+    flash_mod.KERNEL.launches = dec_mod.KERNEL.launches = rope_mod.KERNEL.launches = 0
     report = fleet.route(ar, requests_per_unit=2, prompt_len=16, max_new=4)
-    launches = (flash_mod.KERNEL.launches, dec_mod.KERNEL.launches)
+    launches = (flash_mod.KERNEL.launches, dec_mod.KERNEL.launches, rope_mod.KERNEL.launches)
     if report["dispatched"] != {(0, 0): 3, (0, 1): 1}:
         fail(f"fleet-smoke dispatched {report['dispatched']} for ar {ar.tolist()}")
     want = serve_launches(cfg, 4)
-    if launches != (2 * want["flash_attention"], 2 * want["decode_attention"]):
+    if launches != (2 * want["flash_attention"], 2 * want["decode_attention"],
+                    2 * want["rope"]):
         fail(f"fleet-smoke {arch} launches {launches}")
     rng = np.random.default_rng(1)
     batch = logit_batch(cfg, {"tokens": torch.from_numpy(

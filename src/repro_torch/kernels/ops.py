@@ -7,7 +7,8 @@
   * ``chunked`` — the streaming form with its own backward,
                   ``kernels/flash_vjp.py`` (attention only), as the
                   reference's ``impl="chunked"``;
-  * ``ref``     — always the plain oracle of ``kernels/ref.py``.
+  * ``ref``     — always the plain oracle of ``kernels/ref.py`` (of
+                  ``models/layers.py`` for :func:`rope`).
 
 The signatures are those of ``repro.kernels.ops`` less ``block_q`` /
 ``block_k``: the CUDA kernels' tiles are compile-time constants.
@@ -15,21 +16,25 @@ The signatures are those of ``repro.kernels.ops`` less ``block_q`` /
 Under a mesh (``distributed/sharding.py``) ``attention`` takes DTensors and
 calls the kernel once per shard on its local tensors (:func:`_per_shard`):
 the kernels are autograd Functions with no DTensor sharding rule, and their
-own code does not change.
+own code does not change. ``rope`` does the same on the card
+(:func:`_rope_per_shard`); on the CPU its plain version takes the DTensors
+as they are.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from ..distributed.sharding import constrain, is_dtensor
+from ..models.layers import apply_rope as _plain_rope
 from . import ref as _ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .flash_vjp import flash_attention_torch as _chunked
+from .rope import rope as _rope_kernel
 
 IMPLS = ("auto", "chunked", "ref")
 # the calls :func:`record_calls` collects (None: not collecting)
@@ -149,6 +154,51 @@ def _per_shard(fn, q, k, v, *, q_offset: int, **kw):
     _note("flash_attention", ql, kl)
     o = fn(ql, kl, vl, q_offset=q_offset, **kw).contiguous()
     return DTensor.from_local(o, mesh, q.placements, run_check=False)
+
+
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float, *,
+         impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Half-split RoPE of q (B, S, H, hd) and k (B, S, KVH, hd) at integer
+    positions (B, S): ``auto`` the kernel of ``kernels/rope.py`` for a CUDA
+    tensor (one launch for both), the plain ``models/layers.apply_rope`` for a
+    CPU one; ``ref`` the plain version always."""
+    _check_impl(impl, ("auto", "ref"))
+    if impl == "ref":
+        return _plain_rope(q, positions, theta), _plain_rope(k, positions, theta)
+    if is_dtensor(q) and q.device.type != "cpu":
+        return _rope_per_shard(q, k, positions, theta)
+    return _rope_kernel(q, k, positions, theta)
+
+
+def _rope_per_shard(q, k, positions, theta: float):
+    """The kernel's wrapper on each shard's local q and k, with the positions
+    of the shard's own rows.
+
+    The rotation is per token and head dim pair, and linear, so any placement
+    of q and k's batch, sequence and head dims (a partial sum too) rotates
+    shard by shard; the head dim itself may not be split. q and k must split
+    their rows (batch and sequence) alike; ``positions`` (a plain tensor,
+    whole, or a DTensor) is cut to those rows.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def rows(t):
+        return [p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in t.placements]
+
+    mesh = q.device_mesh
+    for name, t in (("q", q), ("k", k)):
+        if any(isinstance(p, Shard) and p.dim == 3 for p in t.placements):
+            raise ValueError(f"rope: {name} is sharded on its head dim ({t.placements})")
+    if rows(k) != rows(q):
+        raise ValueError(f"rope: q {q.placements} and k {k.placements} split their rows "
+                         "differently")
+    if not is_dtensor(positions):
+        positions = DTensor.from_local(positions, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+    pl = positions.redistribute(mesh, rows(q)).to_local()
+    ql, kl = _rope_kernel(q.to_local(), k.to_local(), pl, theta)
+    return (DTensor.from_local(ql, mesh, q.placements, run_check=False),
+            DTensor.from_local(kl, mesh, k.placements, run_check=False))
 
 
 def decode_attention(

@@ -16,7 +16,7 @@ import torch
 from .. import obs
 from ..distributed.sharding import constrain, is_dtensor, merge_heads, split_heads, write_at
 from ..kernels import ops
-from .layers import DTYPES, Params, apply_mrope, apply_rope, dense, dense_init
+from .layers import DTYPES, Params, apply_mrope, dense, dense_init
 
 
 def attn_init(gen: torch.Generator, cfg) -> Params:
@@ -31,12 +31,12 @@ def attn_init(gen: torch.Generator, cfg) -> Params:
 
 
 def _apply_positional(cfg, q, k, positions):
-    """RoPE on positions (B, S), M-RoPE on (B, S, 3), or nothing (``rope_mode``
-    ``none``: whisper's positions are added to its embeddings instead)."""
+    """RoPE on positions (B, S) (``ops.rope``: q and k in one kernel launch on
+    the card), M-RoPE on (B, S, 3), or nothing (``rope_mode`` ``none``:
+    whisper's positions are added to its embeddings instead)."""
     with obs.span("rope"):
         if cfg.rope_mode == "rope":
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q, k = ops.rope(q, k, positions, cfg.rope_theta)
         elif cfg.rope_mode == "mrope":
             q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
             k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)

@@ -7,7 +7,11 @@ whisper-base's non-causal shapes at its serving batch
 (``tests/test_torch_kernels.py`` checks that the copies agree); the
 backward kernel against ``kernels/flash_vjp.py`` on ``[kernel-bwd]``'s
 cases (two of its calls bit-equal at the training shape and the MQA case),
-and a smoke train step through both kernels against ``impl="ref"``.
+and a smoke train step through both kernels against ``impl="ref"``; the
+RoPE kernel (``csrc/rope.cu``) bit-equal to its plain version forward and
+backward at ``chip_smoke.ROPE_CASES``, and a smoke ``generate`` of
+qwen2-7b making one RoPE launch a layer and step, its tokens those of the
+plain RoPE.
 This file imports no JAX, so it runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -29,7 +33,10 @@ import chip_smoke
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import flash_vjp as tflash_vjp
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rope as trope
+from repro_torch.models.layers import apply_rope
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -296,3 +303,106 @@ def test_train_step_through_the_kernels(cuda):
         assert abs(float(loss) / float(want_loss) - 1) < 1e-5
         for a, w in zip(tree_leaves(grads), tree_leaves(want)):
             assert torch.allclose(a, w, rtol=1e-4, atol=1e-4)
+
+
+def _rope_inputs(case, dtype, device, requires_grad=False):
+    b, s, h, kvh, d, lo, hi = case
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k = _randn(gen, (b, s, h, d), dtype, device), _randn(gen, (b, s, kvh, d), dtype, device)
+    pos = chip_smoke.rope_positions(b, s, lo, hi, device, gen)
+    return q.requires_grad_(requires_grad), k.requires_grad_(requires_grad), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.ROPE_CASES)
+def test_rope_kernel_matches_plain_bit_for_bit(cuda, case, dtype):
+    """q and k rotated in one launch, each element equal to ``apply_rope``'s
+    on the card (the same inverse frequencies, precise sinf / cosf, every
+    product and sum rounded on its own)."""
+    q, k, pos = _rope_inputs(case, dtype, cuda)
+    launches = trope.KERNEL.launches
+    got = ops.rope(q, k, pos, chip_smoke.ROPE_THETA)
+    torch.cuda.synchronize()
+    assert trope.KERNEL.launches == launches + 1
+    for g, x in zip(got, (q, k)):
+        want = apply_rope(x, pos, chip_smoke.ROPE_THETA)
+        assert g.dtype == dtype and g.shape == want.shape and g.is_contiguous()
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", chip_smoke.ROPE_CASES)
+def test_rope_kernel_backward_matches_autograd_bit_for_bit(cuda, case, dtype):
+    """The backward (the kernel by -angle, one launch) against autograd
+    through the plain version, bit for bit."""
+    q, k, pos = _rope_inputs(case, dtype, cuda, requires_grad=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gq, gk = _randn(gen, q.shape, dtype, cuda), _randn(gen, k.shape, dtype, cuda)
+    launches = trope.KERNEL.launches
+    qr, kr = ops.rope(q, k, pos, chip_smoke.ROPE_THETA)
+    got = torch.autograd.grad((qr, kr), (q, k), (gq, gk))
+    torch.cuda.synchronize()
+    assert trope.KERNEL.launches == launches + 2
+    want = torch.autograd.grad(ops.rope(q, k, pos, chip_smoke.ROPE_THETA, impl="ref"),
+                               (q, k), (gq, gk))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_takes_strides_and_int64_positions(cuda):
+    """q and k as views into wider buffers (heads strided, last dim
+    contiguous) and positions int64, transposed: the same bits as the plain
+    version on contiguous copies."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    qkv = _randn(gen, (3, 19, 12, 64), torch.bfloat16, cuda)
+    q, k = qkv[:, :, :8], qkv[:, :, 8:10]
+    pos = torch.randint(0, 131072, (19, 3), generator=gen, device=cuda).t()
+    got = ops.rope(q, k, pos, 1e4)
+    for g, x in zip(got, (q, k)):
+        assert torch.equal(g, apply_rope(x.contiguous(), pos.contiguous(), 1e4))
+
+
+@pytest.mark.cuda
+def test_rope_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((2, 4, 4, 16), device=cuda)
+    k = torch.zeros((2, 4, 2, 16), device=cuda)
+    pos = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="last dim is not contiguous"):
+        trope.rope(q.transpose(2, 3).contiguous().transpose(2, 3), k, pos, 1e4)
+    with pytest.raises(ValueError, match="positions"):
+        trope.rope(q, k, pos[..., None].expand(2, 4, 3), 1e4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        trope.rope(q.half(), k.half(), pos, 1e4)
+    with pytest.raises(ValueError, match="odd"):
+        trope.rope(q[..., :15], k[..., :15], pos, 1e4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        trope.rope(q, k.cpu(), pos, 1e4)
+
+
+@pytest.mark.cuda
+def test_smoke_generate_makes_one_rope_launch_a_layer_and_step(cuda, monkeypatch):
+    """qwen2-7b at smoke width (fp32, head dim 16) through ``generate``: one
+    RoPE launch per layer at prefill and at each decode step, and the tokens
+    of the same server with RoPE's plain version in place of the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ModelServer, Request
+
+    cfg = get_config("qwen2-7b").smoke()
+    srv = ModelServer(cfg, batch_size=4, cache_len=64, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    reqs = [Request(i, torch.randint(1, cfg.vocab_size, (20,), generator=gen,
+                                     dtype=torch.int32), 6) for i in range(4)]
+    launches = trope.KERNEL.launches
+    got = srv.generate(reqs)
+    torch.cuda.synchronize()
+    assert trope.KERNEL.launches - launches == cfg.num_layers * 6
+    monkeypatch.setattr(ops, "_rope_kernel",
+                        lambda q, k, pos, theta: (apply_rope(q, pos, theta),
+                                                  apply_rope(k, pos, theta)))
+    launches = trope.KERNEL.launches
+    want = srv.generate(reqs)
+    assert trope.KERNEL.launches == launches
+    assert got == want
