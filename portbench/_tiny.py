@@ -13,9 +13,10 @@ if str(CHECKOUT / "src") not in sys.path:
 
 from portbench import harness  # noqa: E402
 
-COMMON = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4, "head_dim": 16,
-          "vocab_size": 256, "rope_theta": 1e6, "rms_norm_eps": 1e-6, "qkv_bias": True,
-          "tie_word_embeddings": False, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+COMMON = {"arch": "qwen2", "hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+          "head_dim": 16, "vocab_size": 256, "rope_theta": 1e6, "rms_norm_eps": 1e-6,
+          "qkv_bias": True, "tie_word_embeddings": False, "hidden_act": "silu",
+          "torch_dtype": "bfloat16"}
 CONFIGS = {
     "qwen2-7b": dict(COMMON, port_arch="qwen2-7b", num_key_value_heads=2,
                      intermediate_size=128),

@@ -2,7 +2,8 @@
 
 After the window, a sample of the finished requests drawn from the seed,
 with the one that served the most tokens in it, is run through the float32
-reference teacher-forced: each row is its request's padded prompt and the
+reference of the configuration's architecture (``archs/<arch>.py``
+``forward``) teacher-forced: each row is its request's padded prompt and the
 tokens the engine fed back to its decode steps, as the timed path ran them.
 For each served token, the gap by which its reference logit lies below the
 reference's best at that position is read; the numbers the cell's limit
@@ -10,9 +11,10 @@ file (``limits/<cell>.json``) names under ``compare`` (the widest gap, or
 the mean and the share over ``FAR``) are held to their limits. Served
 tokens are greedy, so a sound engine's gap is rounding alone.
 
-A dense model couples no rows, so requests are sampled one by one. The MoE
-couples a batch's rows through its capacity slots, so its sample is whole
-batches: the one that holds the longest request, then others.
+Where serving couples no rows (the architecture's ``couples_rows``: a
+dense model), requests are sampled one by one. Where it does (an MoE's
+capacity slots), the sample is whole batches: the one that holds the
+longest request, then others.
 
 The control (``others=("fp8",)``, run by ``calibrate.py`` and the tests,
 never by the benchmark's runs): the same reference in float8 e4m3 at each of
@@ -28,7 +30,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from . import reference as ref
+from . import archs
 
 
 @dataclasses.dataclass
@@ -50,16 +52,12 @@ class Served:
         return torch.cat(self.fed, dim=1).cpu().to(torch.int64)
 
 
-def couples_rows(cfg: Dict) -> bool:
-    return bool(cfg.get("num_experts"))
-
-
 def sample(served: Sequence[Served], cfg: Dict, min_tokens: int, seed: int):
     """[(index into served, rows)]: the requests the check reruns."""
     rng = np.random.default_rng([seed, 2])
     reqs = [(i, r, len(s.outs[r])) for i, s in enumerate(served) for r in range(len(s.outs))]
     longest = max(reqs, key=lambda x: x[2])
-    if couples_rows(cfg):
+    if archs.of(cfg).couples_rows(cfg):
         order = [longest[0]] + [int(i) for i in rng.permutation(len(served))
                                 if i != longest[0]]
         picked, total = [], 0
@@ -119,7 +117,8 @@ def judge(served: Sequence[Served], cfg: Dict, params: Dict, min_tokens: int, se
     For each precision of ``others`` ("fp8": the control; "bf16": the
     witness of rounding alone), the same numbers of the tokens the reference
     in that precision puts first at the same positions, under its name."""
-    whole = couples_rows(cfg)
+    arch = archs.of(cfg)
+    whole = arch.couples_rows(cfg)
     gaps: Dict[str, List[float]] = {name: [] for name in ("", *others)}
     for i, rows in sample(served, cfg, min_tokens, seed):
         toks, positions, outs = _rows(served[i], rows, whole)
@@ -130,9 +129,9 @@ def judge(served: Sequence[Served], cfg: Dict, params: Dict, min_tokens: int, se
             picks[""][j] = torch.as_tensor(out, device=device)
         for prec in others:
             picks[prec] = {}
-            ref.forward(cfg, params, toks, positions,
-                        lambda j, lg, into=picks[prec]: into.__setitem__(j, lg.argmax(-1)),
-                        prefill_len=prefill, precision=prec)
+            arch.forward(cfg, params, toks, positions,
+                         lambda j, lg, into=picks[prec]: into.__setitem__(j, lg.argmax(-1)),
+                         prefill_len=prefill, precision=prec)
 
         def reduce(j: int, logits: torch.Tensor) -> None:
             best = logits.max(-1).values
@@ -140,7 +139,7 @@ def judge(served: Sequence[Served], cfg: Dict, params: Dict, min_tokens: int, se
                 tok = chosen[j].to(logits.device)
                 gaps[name].extend((best - logits.gather(1, tok[:, None])[:, 0]).tolist())
 
-        ref.forward(cfg, params, toks, positions, reduce, prefill_len=prefill)
+        arch.forward(cfg, params, toks, positions, reduce, prefill_len=prefill)
     out: Dict[str, float] = {"tokens_checked": len(gaps[""])}
     for name, g in gaps.items():
         out.update(_spread(f"{name}_" if name else "", g))

@@ -10,7 +10,13 @@ order, starting a batch only while ``seconds`` have not elapsed; the window
 closes when the last batch returns, so it holds whole batches. A traced run
 serves the same window, then the mix's ``trace_batches`` batches under the
 profiler, and reports the per-layer metrics: what the host's clock measures
-from the window, what the device did from the traced batches.
+from the window, what the device did from the traced batches. Where a
+per-layer metric of the cell reads the program (``PROGRAM = True`` in its
+file, with the taps it reads under ``TAPS``), a traced run then serves one
+more batch under the profiler, the program batch, with the program's own
+spans recorded (``obs.spans.recording()``) and those taps captured, and
+hands its reduction to the metrics (``View.program``, ``View.taps``); the
+traced batches before it are served and reduced with recording off.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import check, tracing, traffic, weights
+from . import archs, check, tracing, traffic, weights
 
 ROOT = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names, compared whole
@@ -69,41 +75,16 @@ def load_cell(name: str, bench_root: Path) -> Cell:
 # the port
 # ---------------------------------------------------------------------------
 
-def port_config(cfg: Dict):
-    """The port's registry entry for the configuration file, held to the
-    file's published numbers."""
-    from repro_torch.configs import get_config
+def port_config(cfg: Dict, pc=None):
+    """The port's registry entry for the configuration file (or ``pc``, a
+    config of the port given in its place), held to the file's published
+    numbers by the file's architecture module."""
+    if pc is None:
+        from repro_torch.configs import get_config
 
-    pc = get_config(cfg["port_arch"])
-    check_port_config(pc, cfg)
+        pc = get_config(cfg["port_arch"])
+    archs.of(cfg).check_port_config(pc, cfg)
     return pc
-
-
-def check_port_config(pc, cfg: Dict) -> None:
-    """Raise where the port's config departs from the file's numbers."""
-    want = {"d_model": cfg["hidden_size"], "num_layers": cfg["num_hidden_layers"],
-            "num_heads": cfg["num_attention_heads"], "num_kv_heads": cfg["num_key_value_heads"],
-            "vocab_size": cfg["vocab_size"], "rope_theta": cfg["rope_theta"],
-            "qkv_bias": cfg["qkv_bias"], "tie_embeddings": cfg["tie_word_embeddings"],
-            "act": cfg["hidden_act"], "norm": "rmsnorm", "attn_window": 0,
-            "attn_logit_softcap": 0.0, "rope_mode": "rope",
-            "dtype": cfg["torch_dtype"], "param_dtype": cfg["torch_dtype"]}
-    got = {k: getattr(pc, k) for k in want}
-    got["hd"], want["hd"] = pc.hd(), cfg["head_dim"]
-    if cfg.get("num_experts"):
-        want.update(d_ff=cfg["moe_intermediate_size"], num_experts=cfg["num_experts"],
-                    num_experts_per_tok=cfg["num_experts_per_tok"],
-                    shared=cfg["shared_expert_intermediate_size"])
-        got.update(d_ff=pc.d_ff, num_experts=pc.num_experts,
-                   num_experts_per_tok=pc.num_experts_per_tok,
-                   shared=(pc.shared_d_ff or pc.d_ff) * pc.num_shared_experts)
-    else:
-        want.update(d_ff=cfg["intermediate_size"], num_experts=0)
-        got.update(d_ff=pc.d_ff, num_experts=pc.num_experts)
-    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
-    if bad:
-        raise ValueError(f"the port's {pc.name} departs from the configuration file "
-                         f"(port, file): {bad}")
 
 
 @contextlib.contextmanager
@@ -231,7 +212,11 @@ class View:
     """What a metric's reader reads. ``served`` and ``window_s`` are the
     measured window, served without the profiler; ``traced`` the batches
     served after it under the profiler, with its reduced ``trace`` and the
-    ranges' ``notes`` (a traced run only, else empty and None)."""
+    ranges' ``notes`` (a traced run only, else empty and None);
+    ``program_served`` the program batch, with the reduction of the
+    program's spans in its trace (``program``) and each captured tap's
+    values (``taps``: name -> values in order; a traced run whose cell has a
+    metric that reads the program only, else empty and None)."""
 
     cfg: Dict[str, Any]
     setup_s: float
@@ -240,6 +225,9 @@ class View:
     traced: List[check.Served] = dataclasses.field(default_factory=list)
     trace: Optional[tracing.Trace] = None
     notes: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
+    program_served: List[check.Served] = dataclasses.field(default_factory=list)
+    program: Optional[tracing.Program] = None
+    taps: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
 
 
 def p95(values: List[float]) -> float:
@@ -279,6 +267,19 @@ def _traced_batches(server, source, taps: Taps, metrics, n: int, clock):
     return traced, prof, dict(ranges.notes)
 
 
+def _program_batch(server, source, taps: Taps, names: List[str], clock):
+    """One batch under the profiler with the program's spans recorded and
+    the taps ``names`` captured: (its ``check.Served``, the profile, each
+    tap's values)."""
+    from repro_torch import obs
+
+    with obs.spans.recording(), obs.capture(*names) as buf:
+        with tracing.profiled() as prof:
+            clock()
+            served = serve_one(server, next(source), taps)
+    return served, prof, {n: buf.by_name(n) for n in names}
+
+
 def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
         device="cuda", port_cfg=None, others=(),
         log=lambda msg: print(msg, file=sys.stderr, flush=True)) -> Dict[str, Any]:
@@ -288,7 +289,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
     clock = _clock_for(device)
     cfg, mix = cell.config, cell.mix
     traffic.check_fits(mix)
-    port_cfg = port_cfg if port_cfg is not None else port_config(cfg)
+    port_cfg = port_config(cfg, port_cfg)
 
     marks = [("start", time.perf_counter())]
     params = weights.draw(cfg, seed, device)
@@ -297,6 +298,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
     server = build_server(port_cfg, params, mix, device)
     marks.append(("server", time.perf_counter()))
     metrics = [metric_module(m["name"]) for m in (cell.per_layer if trace else cell.end_to_end)]
+    program = trace and any(getattr(mod, "PROGRAM", False) for mod in metrics)
+    tap_names = list(dict.fromkeys(n for mod in metrics for n in getattr(mod, "TAPS", ())))
     taps = Taps(clock)
     try:
         warm_up(server, mix, cfg["vocab_size"], seed, taps)
@@ -323,6 +326,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
         if trace:
             view.traced, prof, view.notes = _traced_batches(
                 server, source, taps, metrics, mix["trace_batches"], clock)
+        if program:
+            served_p, prof_p, view.taps = _program_batch(server, source, taps, tap_names,
+                                                         clock)
+            view.program_served = [served_p]
     finally:
         taps.remove()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -346,6 +353,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
         result["device"].update(busy_s=t.busy_s, window_s=t.window_s)
         result["breakdown"] = {"device_ops": [[n, s] for n, s in t.device_ops],
                                "idle_gaps": [[n, s] for n, s in t.idle_gaps]}
+    if program:
+        t_reduce = time.perf_counter()
+        view.program = tracing.reduce_program(prof_p["events"], prof_p["window"])
+        del prof_p
+        log(f"portbench: reduced the program batch's {len(view.program.by_name)} span names "
+            f"in {time.perf_counter() - t_reduce:.3f} s; taps: "
+            + ", ".join(f"{n} {len(v)}" for n, v in view.taps.items()))
     for m, mod in zip(cell.per_layer if trace else cell.end_to_end, metrics):
         v = mod.read(view)
         if v is not None:
@@ -353,7 +367,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: float,
     log(f"portbench: window {window_s:.3f} s, {len(served)} batches, {requests_n} requests; "
         "a batch's seconds (prefill, decode): "
         + " ".join(f"{s.t_return - s.t_hand:.3f}({s.first_token - s.prefill_start:.3f},"
-                   f"{s.t_return - s.first_token:.3f})" for s in served + view.traced))
+                   f"{s.t_return - s.first_token:.3f})"
+                   for s in served + view.traced + view.program_served))
 
     # the check: the program's state freed first; the weights are the benchmark's
     del server, view

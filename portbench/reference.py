@@ -1,29 +1,19 @@
-"""The plain reference of both configurations: Qwen2's dense decoder and
-Qwen1.5-MoE's decoder, in plain PyTorch and float32 with TF32 off.
+"""The parts of the plain reference that no architecture owns, in plain
+PyTorch and float32 with TF32 off: products (``Linear``), RMSNorm, rotary
+embeddings over the half-split pairs, causal attention, a SwiGLU MLP, the
+MoE's capacity rule, and the two lower-precision readings. An architecture
+module (``archs/<arch>.py``) builds its ``forward`` from them.
 
-It follows the published architecture (``modeling_qwen2.py``,
-``modeling_qwen2_moe.py``) and the departures that the configuration file
-lists: RMSNorm, rotary embeddings over the half-split pairs, grouped-query
-attention with q/k/v biases and a causal mask, a SwiGLU MLP; for the MoE a
-float32 softmax router, its top-k renormalized where the file's
-``as_served`` says so (``norm_topk_prob``), each routed (token, choice)
-pair kept only while its expert has a free slot of
-``ceil(T k cf / E)`` counted in (token, choice) order over a capacity group,
-and the shared expert added ungated.
-
-It is teacher-forced: ``forward`` runs whole rows of token ids (a served
-request's padded prompt and the tokens fed back to the decode steps) layer
-by layer, and hands the logits at the positions asked for to a callback.
-Serving couples the rows of a batch only through the MoE's capacity: the
-prompt positions of all rows form one capacity group (prefill), and each
-later position its own group across the rows (one decode step), so an MoE
-batch is run whole. The weights are the benchmark's bf16 tensors, cast to
-float32 a layer at a time. ``precision="fp8"`` is the control: every
-product's weight and input rounded to float8 e4m3 with a per-tensor scale.
+A reference is teacher-forced: ``forward`` runs whole rows of token ids (a
+served request's padded prompt and the tokens fed back to the decode steps)
+layer by layer, and hands the logits at the positions asked for to a
+callback. The weights are the benchmark's bf16 tensors, cast to float32 a
+layer at a time. ``precision="fp8"`` is the control: every product's weight
+and input rounded to float8 e4m3 with a per-tensor scale.
 ``precision="bf16"`` is a witness, not a check: float32 arithmetic with
 every product's input and output, every norm, rotation and residual sum
-rounded to bfloat16, as the served path rounds them; it shows how far
-bf16 rounding alone moves the logits (the MoE's routes flip under it).
+rounded to bfloat16, as the served path rounds them; it shows how far bf16
+rounding alone moves the logits (an MoE's routes flip under it).
 
 Nothing here imports the program under test.
 """
@@ -31,7 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict
 
 import torch
 
@@ -129,92 +119,13 @@ def swiglu(p: Dict, x: torch.Tensor, precision: str) -> torch.Tensor:
     return out
 
 
-def capacity_keep(sel: torch.Tensor, num_experts: int, cf: float) -> torch.Tensor:
+def capacity_keep(sel: torch.Tensor, experts: int, cf: float) -> torch.Tensor:
     """Which of a capacity group's (token, choice) pairs ``sel`` (Tg, k) keep
     their expert: a pair keeps it while fewer than ceil(Tg k cf / E) earlier
-    pairs, in (token, choice) order, chose the same expert."""
+    pairs, in (token, choice) order, chose the same expert (E ``experts``)."""
     tg, k = sel.shape
-    cap = max(int(math.ceil(tg * k * cf / num_experts)), 1)
+    cap = max(int(math.ceil(tg * k * cf / experts)), 1)
     flat = sel.reshape(-1)
-    onehot = torch.nn.functional.one_hot(flat, num_experts)
+    onehot = torch.nn.functional.one_hot(flat, experts)
     earlier = torch.cumsum(onehot, dim=0) - onehot
     return (earlier.gather(1, flat[:, None])[:, 0] < cap).reshape(tg, k)
-
-
-def moe(p: Dict, cfg: Dict, x: torch.Tensor, prefill_len: int, precision: str) -> torch.Tensor:
-    """The MoE layer over x (R, T, d): positions < prefill_len form one
-    capacity group in row-major order, every later position one group over
-    the R rows."""
-    r, t, d = x.shape
-    e, k = cfg["num_experts"], cfg["num_experts_per_tok"]
-    served = cfg["as_served"]  # the port's departures from the published block
-    if served["shared_expert_gate"]:
-        raise ValueError("the reference adds the shared expert ungated")
-    cf = served["capacity_factor"]
-    probs = torch.softmax(x.reshape(-1, d) @ p["router"]["w"].float(), dim=-1)
-    weights, sel = torch.topk(probs, k, dim=-1, sorted=True)
-    if served["norm_topk_prob"]:
-        weights = weights / weights.sum(dim=-1, keepdim=True)
-    sel, weights = sel.reshape(r, t, k), weights.reshape(r, t, k)
-    keep = torch.empty_like(sel, dtype=torch.bool)
-    s = prefill_len
-    keep[:, :s] = capacity_keep(sel[:, :s].reshape(-1, k), e, cf["prefill"]).reshape(r, s, k)
-    for j in range(s, t):
-        keep[:, j] = capacity_keep(sel[:, j], e, cf["decode"])
-    flat_x = x.reshape(-1, d)
-    flat_sel, flat_w = sel.reshape(-1, k), (weights * keep).reshape(-1, k)
-    y = torch.zeros_like(flat_x)
-    for ex in range(e):
-        tok, choice = torch.nonzero((flat_sel == ex) & keep.reshape(-1, k), as_tuple=True)
-        if tok.numel() == 0:
-            continue
-        w = {n: {"w": p["experts"][n]["w"][ex]} for n in ("w_in", "w_gate", "w_out")}
-        y.index_add_(0, tok, swiglu(w, flat_x[tok], precision) * flat_w[tok, choice, None])
-    y = rnd(y, precision) + swiglu(p["shared"], flat_x, precision)
-    return rnd(y, precision).reshape(r, t, d)
-
-
-def layer(p: Dict, cfg: Dict, x: torch.Tensor, prefill_len: int,
-          precision: str) -> torch.Tensor:
-    eps = cfg["rms_norm_eps"]
-    d, h = cfg["hidden_size"], cfg["num_attention_heads"]
-    kvh = cfg["num_key_value_heads"]
-    hd = cfg.get("head_dim") or d // h
-    r, t, _ = x.shape
-    a = p["attn"]
-    hn = rnd(rms_norm(x, p["norm1"]["scale"], eps), precision)
-    q = rope(Linear(a["wq"], precision)(hn).reshape(r, t, h, hd), cfg["rope_theta"])
-    k = rope(Linear(a["wk"], precision)(hn).reshape(r, t, kvh, hd), cfg["rope_theta"])
-    v = Linear(a["wv"], precision)(hn).reshape(r, t, kvh, hd)
-    del hn
-    q, k = rnd(q, precision), rnd(k, precision)
-    o = rnd(causal_attention(q, k, v), precision).reshape(r, t, h * hd)
-    del q, k, v
-    x = rnd(x + Linear(a["wo"], precision)(o), precision)
-    del o
-    hn = rnd(rms_norm(x, p["norm2"]["scale"], eps), precision)
-    if "moe" in p:
-        return rnd(x + moe(p["moe"], cfg, hn, prefill_len, precision), precision)
-    y = swiglu(p["mlp"], hn.reshape(r * t, d), precision).reshape(r, t, d)
-    return rnd(x + y, precision)
-
-
-def forward(cfg: Dict, params: Dict, tokens: torch.Tensor, positions: Sequence[List[int]],
-            reduce: Callable[[int, torch.Tensor], None], *, prefill_len: Optional[int] = None,
-            precision: str = "fp32") -> None:
-    """Run rows ``tokens`` (R, T) and call ``reduce(row, logits)`` with each
-    row's float32 logits at ``positions[row]`` (n, V). ``prefill_len`` (the
-    batch's padded prompt) splits the MoE's capacity groups; a dense model
-    couples no rows."""
-    if precision not in ("fp32", "bf16", "fp8"):
-        raise ValueError(f"precision {precision!r} not in ('fp32', 'bf16', 'fp8')")
-    prefill_len = tokens.shape[1] if prefill_len is None else prefill_len
-    with exact_float32(), torch.no_grad():
-        x = params["embed"]["w"][tokens].float()
-        for lp in params["stack"]["layers"]:
-            x = layer(lp, cfg, x, prefill_len, precision)
-        head = Linear({"w": (params["head"] if "head" in params else params["embed"])["w"].T},
-                      precision)
-        for i, pos in enumerate(positions):
-            hn = rms_norm(x[i, list(pos)], params["final_norm"]["scale"], cfg["rms_norm_eps"])
-            reduce(i, head(rnd(hn, precision)))

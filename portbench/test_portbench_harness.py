@@ -45,11 +45,11 @@ def test_the_drawn_weights_have_the_ports_layout_at_full_size(name):
     tree the port's ``init`` would build (shapes only: nothing is drawn)."""
     from repro_torch.configs import param_specs_struct
 
-    from portbench import weights
+    from portbench import archs, weights
 
     conf = next(c for c in BENCH["configs"] if c["name"] == name)
     cfg = json.loads((CHECKOUT / conf["file"]).read_text())
-    mine = {p: (spec[1], spec[2]) for p, spec in weights._leaves(weights.layout(cfg))}
+    mine = {p: (spec[1], spec[2]) for p, spec in weights._leaves(archs.of(cfg).layout(cfg))}
     port = {p: (tuple(t.shape), t.dtype)
             for p, t in weights._leaves(param_specs_struct(harness.port_config(cfg)))}
     assert mine == port
@@ -144,6 +144,7 @@ def test_the_95th_percentile_is_over_requests():
 
 def test_host_clock_metrics_read_the_window_served_without_the_profiler():
     from portbench import yardstick
+    from portbench.archs import qwen2
 
     cfg = _cfg()
     trace = tracing.Trace(window_s=9.0, busy_s=3.0, range_device_s={}, range_kernels={},
@@ -158,7 +159,7 @@ def test_host_clock_metrics_read_the_window_served_without_the_profiler():
     assert read["idle_share"] == pytest.approx(25.0)  # 3 s busy of a 4-s batch
     assert read["decode_step_ms"] == pytest.approx(2 * 2.99e3 / 8)  # 2 batches x 4 steps
     assert read["prefill_ms_per_ktok"] == pytest.approx(2e3 / 0.32)  # 2 x 160 real tokens
-    flops = 2 * (yardstick.request_flops(cfg, 100, 5) + yardstick.request_flops(cfg, 60, 3))
+    flops = 2 * (qwen2.request_flops(cfg, 100, 5) + qwen2.request_flops(cfg, 60, 3))
     assert read["mfu"] == pytest.approx(100 * flops / 8.0 / yardstick.PEAK_BF16_FLOPS)
 
 

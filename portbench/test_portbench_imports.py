@@ -1,6 +1,6 @@
 """Nothing a run loads has ``jax``, ``jaxlib``, ``flax`` or ``repro`` as its
 top-level module name (compared whole: ``repro_torch`` is the port), and the
-reference imports nothing of the port."""
+reference and every architecture module import nothing of the port."""
 import ast
 import json
 import os
@@ -32,11 +32,15 @@ def test_no_file_of_the_benchmark_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    f = BENCH / "reference.py"
-    assert not [m for m in _imported(f) if m.split(".")[0] == "repro_torch"]
+    files = [BENCH / "reference.py", *sorted((BENCH / "archs").glob("*.py"))]
+    assert len(files) >= 3
+    for f in files:
+        assert not [m for m in _imported(f) if m.split(".")[0] == "repro_torch"], f.name
+    modules = ["portbench.reference"] + [
+        "portbench.archs" + ("" if f.stem == "__init__" else f".{f.stem}") for f in files[1:]]
     code = ("import sys; sys.path[:0] = ['.', 'src']\n"
-            "import portbench.reference\n"
-            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            + "".join(f"import {m}\n" for m in modules)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'repro_torch', 'jax', 'repro'}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=CHECKOUT, capture_output=True,
                          text=True, timeout=120)

@@ -1,6 +1,8 @@
 """The program-span readings (``program_spans.py``): the reduction of the
 program's ``repro_torch/`` ranges on synthetic profiler events, the five
 readings on hand-made spans, and one CPU run of the tool on a tiny cell."""
+import types
+
 import numpy as np
 import pytest
 
@@ -128,3 +130,96 @@ def test_a_cpu_run_of_the_tool_on_the_tiny_moe_cell(monkeypatch):
     assert calls["serve.generate | serve.generate"] == 2
     assert calls["serve.decode | moe.dispatch"] == calls["serve.decode | moe.experts"] > 0
     assert "serve.decode" in got["decode_self_ms"] and "norm" in got["decode_self_ms"]
+
+
+def _tap_reader():
+    """A per-layer metric that reads the program batch's ``moe/dispatch``
+    tap: the share of the expert products' rows that hold a pair."""
+    mod = types.ModuleType("moe_dispatch_reader")
+    mod.RANGES, mod.PROGRAM, mod.TAPS = [], True, ["moe/dispatch"]
+
+    def read(view):
+        events = view.taps.get("moe/dispatch", [])
+        slots = sum(int(v["slots"]) for v in events)
+        return 100.0 * sum(int(np.sum(v["keep"])) for v in events) / slots if slots else None
+
+    mod.read = read
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen2-moe-a2.7b"])
+def test_the_program_batch_leaves_the_other_metrics_readings_as_they_were(arch, monkeypatch):
+    """A traced tiny run with and without metrics that read the program (the
+    same seed, on a clock that ticks 1 ms a read): every other metric reads
+    the same; the program batch's spans hold one ``serve.decode`` a decode
+    step and one ``serve.readback`` a generated token, and its
+    ``moe/dispatch`` tap one event a layer and pass, in the MoE."""
+    import itertools
+    import time
+
+    from portbench import harness
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    views, made = [], harness.View
+    monkeypatch.setattr(harness, "View", lambda *a, **k: views.append(made(*a, **k)) or views[-1])
+    real, reader = harness.metric_module, _tap_reader()
+    monkeypatch.setattr(harness, "metric_module",
+                        lambda name: reader if name == "moe_dispatch_reader" else real(name))
+    cell = tiny.cell(arch)
+    accepted = [m for m in harness.load_cell(tiny.CELLS[arch], tiny.CHECKOUT).per_layer
+                if not getattr(real(m["name"]), "PROGRAM", False)]
+    program = [{"name": "decode_syncs_per_step", "unit": "syncs"},
+               {"name": "moe_dispatch_reader", "unit": "%"}]
+    results = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for per_layer in (accepted, accepted + program):
+            ticks = itertools.count()
+            monkeypatch.setattr(time, "perf_counter", lambda: next(ticks) * 1e-3)
+            cell.per_layer = per_layer
+            results.append(harness.run(cell, 8, 0.0, True, t_start=time.perf_counter(),
+                                       device="cpu", port_cfg=tiny.port_cfg(arch),
+                                       log=lambda msg: None))
+    finally:
+        torch.set_num_threads(threads)
+    without, with_program = results
+    assert without["correct"] and with_program["correct"]
+    others = {k: v for k, v in with_program["metrics"].items()
+              if k not in {m["name"] for m in program}}
+    assert others == without["metrics"] and {"decode_step_ms", "mfu"} <= set(others)
+    a, b = views
+    assert a.trace.range_calls == b.trace.range_calls and a.trace.range_calls
+    assert {k: len(v) for k, v in a.notes.items()} == {k: len(v) for k, v in b.notes.items()}
+    assert a.program is None and not a.program_served and not a.taps
+    (served,) = b.program_served
+    steps = served.batch.steps
+    assert b.program.row("serve.decode", "serve.decode")["calls"] == steps - 1
+    assert b.program.row("serve.readback")["calls"] == steps
+    assert b.program.row("serve.generate")["calls"] == 1
+    assert with_program["metrics"]["decode_syncs_per_step"]["value"] == 0.0  # no CUDA runtime
+    events = b.taps["moe/dispatch"]
+    if arch == "qwen2-7b":
+        assert events == [] and "moe_dispatch_reader" not in with_program["metrics"]
+        return
+    assert len(events) == cell.config["num_hidden_layers"] * steps  # prefill and each decode step
+    kept = sum(int(np.sum(v["keep"])) for v in events)
+    slots = sum(int(v["slots"]) for v in events)
+    assert 0 < kept <= min(sum(int(v["routed"]) for v in events), slots)
+    assert with_program["metrics"]["moe_dispatch_reader"]["value"] == pytest.approx(
+        100.0 * kept / slots)
+
+
+def test_decode_syncs_per_step_reads_the_program_batch_or_nothing():
+    from portbench import harness
+
+    mod = harness.metric_module("decode_syncs_per_step")
+    assert mod.PROGRAM and mod.TAPS == [] and mod.RANGES == []
+    row = lambda **kw: dict(ps._row(), **kw)  # noqa: E731
+    p = ps.Program(by_name={"serve.readback": row(calls=13, syncs=13),
+                            "serve.decode": row(calls=12, syncs=0)}, by_phase={}, idle_gaps=[])
+    assert mod.read(harness.View({}, 0.0, [], 0.0, program=p)) == 1.0
+    p.by_name["serve.decode"]["syncs"] = 26  # two waits in each decode step
+    assert mod.read(harness.View({}, 0.0, [], 0.0, program=p)) == 3.0
+    assert mod.read(harness.View({}, 0.0, [], 0.0)) is None  # no program batch
+    assert mod.read(harness.View({}, 0.0, [], 0.0, program=ps.Program({}, {}, []))) is None

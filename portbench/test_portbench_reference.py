@@ -5,6 +5,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from portbench import reference as ref  # noqa: E402
+from portbench.archs import qwen2  # noqa: E402
 from portbench import _tiny as tiny  # noqa: E402
 from portbench import check, weights  # noqa: E402
 
@@ -21,8 +22,8 @@ def test_reference_logits_match_the_ports_forward_in_fp32(arch):
     toks = torch.randint(1, 256, (3, 21), generator=torch.Generator().manual_seed(1))
     want, _ = model_lib.forward(params, pc, {"tokens": toks.to(torch.int32)}, impl="ref")
     got = {}
-    ref.forward(cfg, params, toks, [list(range(21))] * 3,
-                lambda i, lg: got.__setitem__(i, lg))
+    qwen2.forward(cfg, params, toks, [list(range(21))] * 3,
+                  lambda i, lg: got.__setitem__(i, lg))
     got = torch.stack([got[i] for i in range(3)])
     assert torch.allclose(got, want.float(), atol=2e-5, rtol=1e-5)
 

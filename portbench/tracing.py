@@ -10,7 +10,10 @@ profiler's raw events: a device operation (kernel, copy or set) belongs to a
 range when the host launched it inside the range, by the launch's CUDA
 runtime event (or, failing that, by the host operation the profiler links it
 to), so every kernel counts whatever implements the wrapped call, ctypes
-launches included.
+launches included. :func:`reduce_program` reads the program's own spans
+(``repro_torch/<name>`` ranges, which ``repro_torch`` opens inside
+``obs.spans.recording()`` only) from a trace the same way, with the CUDA
+runtime's waits for the card inside each.
 """
 from __future__ import annotations
 
@@ -26,6 +29,10 @@ import torch
 PREFIX = "portbench/"
 WINDOW = "portbench.window"  # the traced window's own range
 TOP = 10  # entries of each breakdown list
+RANGE_PREFIX = "repro_torch/"  # the program's ranges (``obs.spans.RANGE_PREFIX``)
+ROOT_SPAN = "serve.generate"
+# the CUDA runtime's calls that wait for the card
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
 
 
 class Ranges:
@@ -188,6 +195,120 @@ def reduce_events(events, window: Tuple[int, int]) -> Trace:
         unlinked=int((launched < 0).sum()),
         device_events=len(starts),
     )
+
+
+@dataclasses.dataclass
+class Program:
+    """The program's spans in a trace. A row holds ``calls``, ``host_s``,
+    ``device_s`` and ``ops`` (the device operations launched inside the
+    span, nested spans included) and ``syncs`` (the runtime's waits for the
+    card inside it). ``by_phase`` keys a row by (phase, name): the phase is
+    the span directly under ``serve.generate`` that holds it (a span
+    outside any ``serve.generate`` is its own outermost span's)."""
+
+    by_name: Dict[str, Dict[str, float]]
+    by_phase: Dict[Tuple[str, str], Dict[str, float]]
+    idle_gaps: List[Tuple[str, float]]
+
+    def row(self, name: str, phase: Optional[str] = None) -> Dict[str, float]:
+        got = self.by_name.get(name) if phase is None else self.by_phase.get((phase, name))
+        return got or _row()
+
+
+def _row() -> Dict[str, float]:
+    return {"calls": 0, "host_s": 0.0, "device_s": 0.0, "ops": 0, "syncs": 0}
+
+
+def _phases(spans: List[Tuple[int, int, str]]) -> List[str]:
+    """Each span's phase, the spans sorted by (start, -end); spans of one
+    thread nest, so a stack of the open ones gives each its outermost two."""
+    phases, stack = [], []
+    for s, e, name in spans:
+        while stack and stack[-1][0] <= s:
+            stack.pop()
+        stack.append((e, name))
+        outer = [n for _, n in stack[:2]]
+        phases.append(outer[1] if outer[0] == ROOT_SPAN and len(outer) > 1 else outer[0])
+    return phases
+
+
+def reduce_program(events, window: Tuple[int, int]) -> Program:
+    """The program's spans in the profiler's raw events over ``window``. A
+    device operation belongs to every span open when the host launched it,
+    by the launch's runtime event (or the host operation linked to it), as
+    ``tracing.reduce_events`` attributes the benchmark's ranges."""
+    dev_s, dev_e, dev_corr, dev_link = [], [], [], []
+    runtime: Dict[int, int] = {}
+    frontend: Dict[int, int] = {}
+    syncs: List[int] = []
+    spans: List[Tuple[int, int, str]] = []
+    host_s, host_e, host_names = [], [], []
+    bench: Dict[str, List[Tuple[int, int]]] = collections.defaultdict(list)
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in events:
+        name, start = ev.name(), ev.start_ns()
+        if ev.device_type() == cuda:
+            if name.startswith((RANGE_PREFIX, PREFIX)) or name == WINDOW:
+                continue
+            dev_s.append(start)
+            dev_e.append(start + ev.duration_ns())
+            dev_corr.append(ev.correlation_id())
+            dev_link.append(ev.linked_correlation_id())
+        elif name.startswith("cu"):
+            runtime[ev.correlation_id()] = start
+            if name in SYNCS:
+                syncs.append(start)
+        else:
+            end = start + ev.duration_ns()
+            frontend[ev.correlation_id()] = start
+            if name.startswith(RANGE_PREFIX):
+                spans.append((start, end, name[len(RANGE_PREFIX):]))
+            elif name.startswith(PREFIX):
+                bench[name[len(PREFIX):]].append((start, end))
+            elif name != WINDOW:
+                host_s.append(start)
+                host_e.append(end)
+                host_names.append(name)
+
+    launched = np.asarray([runtime.get(c, frontend.get(link, -1))
+                           for c, link in zip(dev_corr, dev_link)], dtype=np.int64)
+    dur = np.asarray(dev_e, dtype=np.int64) - np.asarray(dev_s, dtype=np.int64)
+    order = np.argsort(launched, kind="stable")
+    at, cum = launched[order], np.concatenate([[0], np.cumsum(dur[order])])
+    waits = np.sort(np.asarray(syncs, dtype=np.int64))
+
+    spans.sort(key=lambda x: (x[0], -x[1]))
+    by_name: Dict[str, Dict[str, float]] = {}
+    by_phase: Dict[Tuple[str, str], Dict[str, float]] = {}
+    for (s, e, name), phase in zip(spans, _phases(spans)):
+        lo, hi = np.searchsorted(at, s, side="left"), np.searchsorted(at, e, side="right")
+        nsync = int(np.searchsorted(waits, e, side="right") - np.searchsorted(waits, s))
+        for row in (by_name.setdefault(name, _row()), by_phase.setdefault((phase, name), _row())):
+            row["calls"] += 1
+            row["host_s"] += (e - s) / 1e9
+            row["device_s"] += float(cum[hi] - cum[lo]) / 1e9
+            row["ops"] += int(hi - lo)
+            row["syncs"] += nsync
+
+    # the device's idle gaps, as reduce_events finds them, labelled with the
+    # program's spans and the benchmark's ranges open at each
+    starts, ends = np.asarray(dev_s, dtype=np.int64), np.asarray(dev_e, dtype=np.int64)
+    gaps: List[Tuple[int, int]] = []
+    if len(starts):
+        _, inner = _union(starts, ends)
+        gaps = [(window[0], int(starts.min()))] + inner + [(int(ends.max()), window[1])]
+    opened = collections.defaultdict(list)
+    for s, e, name in spans:
+        opened[name].append((s, e))
+    for name, iv in bench.items():
+        opened[PREFIX + name] = sorted(iv)
+    ranges = {n: (np.asarray([s for s, _ in iv], dtype=np.int64),
+                  np.asarray([e for _, e in iv], dtype=np.int64)) for n, iv in opened.items()}
+    hs, he = np.asarray(host_s, dtype=np.int64), np.asarray(host_e, dtype=np.int64)
+    top = sorted(gaps, key=lambda g: g[0] - g[1])[:TOP]
+    labels = [(_host_label((a + b) // 2, hs, he, host_names, ranges), (b - a) / 1e9)
+              for a, b in top]
+    return Program(by_name, by_phase, labels)
 
 
 @contextlib.contextmanager

@@ -11,9 +11,10 @@ and the head to N(0, 1/d), q/k/v biases to N(0, 0.1^2), norm scales to
 1 + N(0, 0.1^2), so that every part of a layer, biases and norms included,
 moves the logits.
 
-The layout is the port's (``models/model.py`` ``init``): ``layout`` builds
-it from the configuration file, and a test holds it to the tree the port
-would build (``repro_torch.configs.param_specs_struct``).
+The tree of leaves to draw is the configuration's architecture module's
+(``archs/<arch>.py`` ``layout``, built from ``dense`` and ``norm``): the
+port's parameter layout, which a test holds to the tree the port would
+build (``repro_torch.configs.param_specs_struct``).
 """
 from __future__ import annotations
 
@@ -22,62 +23,24 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from . import archs
+
 ALIGN = 64  # elements: each leaf starts a multiple of 128 bytes into its buffer
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _dense(d_in: int, d_out: int, dt, scale: float = 1.0, bias: bool = False) -> Dict[str, Any]:
+def dense(d_in: int, d_out: int, dt, scale: float = 1.0, bias: bool = False) -> Dict[str, Any]:
+    """A product's (d_in, d_out) weight leaf at std ``scale / sqrt(d_in)``,
+    and its bias leaf where ``bias``."""
     p = {"w": ("weight", (d_in, d_out), dt, scale / math.sqrt(d_in))}
     if bias:
         p["b"] = ("bias", (d_out,), dt, 0.1)
     return p
 
 
-def _norm(d: int, dt) -> Dict[str, Any]:
+def norm(d: int, dt) -> Dict[str, Any]:
+    """A norm's scale leaf, drawn as 1 + N(0, 0.1^2)."""
     return {"scale": ("norm", (d,), dt, 0.1)}
-
-
-def layout(cfg: Dict) -> Dict[str, Any]:
-    """The parameter tree as (kind, shape, dtype, std) leaves, in the
-    configuration's ``torch_dtype`` (the router in float32)."""
-    dt = DTYPES[cfg["torch_dtype"]]
-    d, layers = cfg["hidden_size"], cfg["num_hidden_layers"]
-    h, kvh = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd = cfg.get("head_dim") or d // h
-    bias, out_scale = bool(cfg.get("qkv_bias")), 1.0 / math.sqrt(layers)
-    vocab = cfg["vocab_size"]
-
-    def mlp(f: int) -> Dict[str, Any]:
-        return {"w_in": _dense(d, f, dt), "w_out": _dense(f, d, dt, out_scale),
-                "w_gate": _dense(d, f, dt)}
-
-    def layer() -> Dict[str, Any]:
-        p = {"norm1": _norm(d, dt),
-             "attn": {"wq": _dense(d, h * hd, dt, bias=bias),
-                      "wk": _dense(d, kvh * hd, dt, bias=bias),
-                      "wv": _dense(d, kvh * hd, dt, bias=bias),
-                      "wo": _dense(h * hd, d, dt, out_scale)},
-             "norm2": _norm(d, dt)}
-        if cfg.get("num_experts"):
-            e, f = cfg["num_experts"], cfg["moe_intermediate_size"]
-            p["moe"] = {
-                "router": {"w": ("weight", (d, e), torch.float32, 1.0 / math.sqrt(d))},
-                "experts": {
-                    "w_in": {"w": ("weight", (e, d, f), dt, 1.0 / math.sqrt(d))},
-                    "w_gate": {"w": ("weight", (e, d, f), dt, 1.0 / math.sqrt(d))},
-                    "w_out": {"w": ("weight", (e, f, d), dt,
-                                    out_scale / math.sqrt(f))}},
-                "shared": mlp(cfg["shared_expert_intermediate_size"])}
-        else:
-            p["mlp"] = mlp(cfg["intermediate_size"])
-        return p
-
-    tree = {"embed": {"w": ("weight", (vocab, d), dt, 1.0 / math.sqrt(d))},
-            "stack": {"layers": [layer() for _ in range(layers)]},
-            "final_norm": _norm(d, dt)}
-    if not cfg.get("tie_word_embeddings"):
-        tree["head"] = {"w": ("weight", (vocab, d), dt, 1.0 / math.sqrt(d))}
-    return tree
 
 
 def _leaves(tree, path: str = "") -> List[Tuple[str, Any]]:
@@ -98,7 +61,7 @@ def _rebuild(tree, values: Dict[str, Any], path: str = ""):
 
 def draw(cfg: Dict, seed: int, device) -> Dict[str, Any]:
     """The seed's weights on ``device``, in the port's tree."""
-    tree = layout(cfg)
+    tree = archs.of(cfg).layout(cfg)
     leaves = _leaves(tree)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % 2 ** 63)
